@@ -1,5 +1,6 @@
-"""Hand-written CUDA kernels for the main path, each beside its plain
-PyTorch version. The library is built from ``robseg_torch/csrc`` at the
+"""Hand-written CUDA kernels, each beside its plain PyTorch version: the
+main path's four, and the fused-head and MLP-tail kernels of the model's
+other fused settings. The library is built from ``robseg_torch/csrc`` at the
 first launch (``_build.py``)."""
 
 from robseg_torch.kernels.apgd_step import (  # noqa: F401
@@ -9,6 +10,13 @@ from robseg_torch.kernels.confusion import (  # noqa: F401
 from robseg_torch.kernels.convnext_block import (  # noqa: F401
     ConvNeXtBlockFn, convnext_block_dx_cuda, convnext_block_dx_plain,
     convnext_block_fwd_cuda, convnext_block_plain)
+from robseg_torch.kernels.convnext_mlp import (  # noqa: F401
+    ConvNeXtMlpFn, convnext_mlp_dx_cuda, convnext_mlp_dx_plain,
+    convnext_mlp_fwd_cuda, convnext_mlp_fwd_plain, convnext_mlp_plain)
+from robseg_torch.kernels.fpn_conv import (  # noqa: F401
+    FpnConcatConvFn, fpn_concat_conv, fpn_concat_conv_dx_cuda,
+    fpn_concat_conv_dx_plain, fpn_concat_conv_fwd_cuda,
+    fpn_concat_conv_fwd_plain, fpn_concat_conv_plain)
 
 # each CUDA wrapper counts its own launches (a plain int attribute)
 CUDA_WRAPPERS = {
@@ -16,6 +24,10 @@ CUDA_WRAPPERS = {
     "convnext_block_dx": convnext_block_dx_cuda,
     "apgd_linf_step": apgd_linf_step_cuda,
     "confusion_matrix": confusion_matrix_cuda,
+    "fpn_concat_conv_fwd": fpn_concat_conv_fwd_cuda,
+    "fpn_concat_conv_dx": fpn_concat_conv_dx_cuda,
+    "convnext_mlp_fwd": convnext_mlp_fwd_cuda,
+    "convnext_mlp_dx": convnext_mlp_dx_cuda,
 }
 
 

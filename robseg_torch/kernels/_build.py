@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels.
 
-Every ``robseg_torch/csrc/*.cu`` is compiled by ``nvcc`` into one shared
-library with a plain C interface, ``robseg_torch/_build/librobseg_<hash>.so``
-(the hash covers the sources and the flags, so an edited source rebuilds),
-and loaded with ``ctypes``. The build happens at the first launch of any
+Every ``robseg_torch/csrc/*.cu`` is compiled by its own ``nvcc`` process,
+all started together, and the objects are linked into one shared library
+with a plain C interface, ``robseg_torch/_build/librobseg_<hash>.so`` (the
+hash covers the sources and the flags, so an edited source rebuilds), which
+is loaded with ``ctypes``. The build happens at the first launch of any
 kernel, never at import: the CPU tests import every module on machines
 that have no ``nvcc``.
 """
@@ -23,7 +24,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _lib = None
@@ -45,7 +46,8 @@ def _sources():
 
 def library_path() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    headers = glob.glob(os.path.join(CSRC_DIR, "*.cuh"))
+    for src in sorted(_sources() + headers):
         with open(src, "rb") as f:
             h.update(os.path.basename(src).encode() + f.read())
     return os.path.join(BUILD_DIR, f"librobseg_{h.hexdigest()[:16]}.so")
@@ -59,23 +61,36 @@ def build() -> str:
     if os.path.exists(path):
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
-    # build to a private name, then rename: concurrent processes never see
-    # a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()]
+    nvcc = _nvcc()
+    # build in a private directory, then rename: concurrent processes
+    # never see a half-written library
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        jobs = []
+        for src in _sources():
+            obj = os.path.join(tmp, os.path.basename(src) + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        log = []
+        for cmd, _, proc in jobs:
+            out = proc.communicate()[0]
+            if proc.returncode != 0:
+                for _, _, other in jobs:
+                    other.kill()
+                    other.wait()
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                                   f"{' '.join(cmd)}\n{out}")
+            log.append(f"$ {' '.join(cmd)}\n{out}")
+        lib = os.path.join(tmp, "lib.so")
+        cmd = [nvcc, "-shared", "-o", lib, *(obj for _, obj, _ in jobs)]
         p = subprocess.run(cmd, capture_output=True, text=True)
         if p.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({p.returncode}):\n{' '.join(cmd)}\n"
-                f"{p.stdout}\n{p.stderr}")
+            raise RuntimeError(f"nvcc link failed ({p.returncode}):\n"
+                               f"{' '.join(cmd)}\n{p.stdout}\n{p.stderr}")
         with open(path + ".log", "w") as f:
-            f.write(p.stdout + p.stderr)
-        os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+            f.write("\n".join(log))
+        os.replace(lib, path)
     return path
 
 
@@ -92,6 +107,11 @@ _SIGNATURES = {
     "robseg_convnext_block_supported": [_I],
     "robseg_convnext_block_fwd": [_P] * 12 + [_I] * 4 + [_P],
     "robseg_convnext_block_dx": [_P] * 15 + [_I] * 4 + [_P],
+    "robseg_fpn_fwd": [_P] * 4 + [_I] + [_P] * 5 + [_I] * 5 + [_P],
+    "robseg_fpn_dx": [_P] * 9 + [_I] * 6 + [_P],
+    "robseg_convnext_mlp_supported": [_I],
+    "robseg_convnext_mlp_fwd": [_P] * 10 + [_I64, _I, _I, _P],
+    "robseg_convnext_mlp_dx": [_P] * 10 + [_I64, _I, _I, _P],
 }
 
 

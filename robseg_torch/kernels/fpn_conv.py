@@ -1,0 +1,168 @@
+"""UperNet's fpn_bottleneck without the channel concat: CUDA forward and
+input-gradient kernels, their plain versions, and the autograd Function
+that joins them.
+
+Port of ``robseg_tpu/kernels/fpn_conv.py::fpn_concat_conv``; the kernels
+are ``robseg_torch/csrc/fpn_conv.cu``.
+
+    out = relu((sum_i conv3x3(bf16(x_i), bf16(w_i))) * s + t)
+
+The layouts are the JAX function's: ``xs`` a list of n <= 4 channels-last
+``(B, H, W, C)`` float32 maps, ``w`` the per-source weight slices
+``(n, 3, 3, C, Co)``, ``s, t`` the ``(Co,)`` fold of the eval BatchNorm.
+Matmul operands are rounded to bf16 and products summed in float32, where
+the TPU kernel rounds (``fpn_conv.py:54-60, 93-98, 135``); the backward
+rounds ``g = bf16(bf16(dy) * bf16(s)) * (out > 0)``. The plain versions
+round at the same places (``.to(torch.bfloat16).float()``) and then
+convolve in float32, so the kernel can be held to them tightly.
+
+Differentiable with respect to ``xs`` only: ``w``, ``s`` and ``t`` are
+attack-time constants and get ``None``, as the JAX VJP gives them zeros.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from robseg_torch.kernels import _build
+
+
+def _bf(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.bfloat16).float()
+
+
+def _full_weight(w: torch.Tensor) -> torch.Tensor:
+    """(n, 3, 3, C, Co) slices -> the (Co, n*C, 3, 3) conv weight."""
+    n, _, _, c, co = w.shape
+    return w.permute(4, 0, 3, 1, 2).reshape(co, n * c, 3, 3)
+
+
+def fpn_concat_conv_fwd_plain(xs, w, s, t):
+    """The forward in plain PyTorch ops (concat, conv, affine, ReLU)."""
+    x = torch.cat([_bf(v) for v in xs], dim=-1).permute(0, 3, 1, 2)
+    y = F.conv2d(x, _bf(_full_weight(w)), padding=1)
+    y = F.relu(y * s[:, None, None] + t[:, None, None])
+    return y.permute(0, 2, 3, 1).contiguous()
+
+
+def fpn_concat_conv_dx_plain(dy, out, w, s):
+    """The input gradients of all sources, in plain PyTorch ops."""
+    g = (dy.to(torch.bfloat16) * s.to(torch.bfloat16)).float() * (out > 0)
+    dx = F.conv_transpose2d(g.permute(0, 3, 1, 2), _bf(_full_weight(w)),
+                            padding=1)
+    c = w.shape[3]
+    return tuple(dx[:, i * c:(i + 1) * c].permute(0, 2, 3, 1).contiguous()
+                 for i in range(w.shape[0]))
+
+
+def _check(name: str, t: torch.Tensor, shape, device,
+           contiguous: bool = True) -> None:
+    if (not t.is_cuda or t.device != device or t.dtype != torch.float32
+            or tuple(t.shape) != tuple(shape)
+            or (contiguous and not t.is_contiguous())):
+        raise ValueError(
+            f"fpn_concat_conv: {name} must be a contiguous float32 "
+            f"{tuple(shape)} CUDA tensor on {device}; got {t.dtype} "
+            f"{tuple(t.shape)} on {t.device}, contiguous={t.is_contiguous()}")
+
+
+def _shapes(x0: torch.Tensor, w: torch.Tensor):
+    if not x0.is_cuda or x0.ndim != 4:
+        raise ValueError("fpn_concat_conv: inputs must be (B, H, W, C) CUDA "
+                         f"tensors; got {tuple(x0.shape)} on {x0.device}")
+    n, c, co = w.shape[0], w.shape[3], w.shape[4]
+    if not 1 <= n <= 4 or c % 32 or co % 32:
+        raise ValueError(f"fpn_concat_conv: no kernel for {n} sources, "
+                         f"C={c}, Co={co} (1-4 sources, C and Co multiples "
+                         "of 32)")
+    # any strides: the wrappers pack it anew
+    _check("w", w, (n, 3, 3, c, co), x0.device, contiguous=False)
+    return n, c, co
+
+
+def fpn_concat_conv_fwd_cuda(xs, w, s, t):
+    """Forward kernel on CUDA tensors."""
+    xs = list(xs)
+    n, c, co = _shapes(xs[0], w)
+    b, h, wd, _ = xs[0].shape
+    if len(xs) != n:
+        raise ValueError(f"fpn_concat_conv: {len(xs)} inputs, {n} weights")
+    for i, x in enumerate(xs):
+        _check(f"xs[{i}]", x, (b, h, wd, c), xs[0].device)
+    _check("s", s, (co,), xs[0].device)
+    _check("t", t, (co,), xs[0].device)
+    wp = w.detach().to(torch.bfloat16).reshape(n * 9 * c, co).contiguous()
+    xb = torch.empty((n, b, h, wd, c), dtype=torch.bfloat16,
+                     device=xs[0].device)
+    out = torch.empty((b, h, wd, co), dtype=torch.float32,
+                      device=xs[0].device)
+    ptrs = [x.data_ptr() for x in xs] + [None] * (4 - n)
+    err = _build.library().robseg_fpn_fwd(
+        *ptrs, n, wp.data_ptr(), s.data_ptr(), t.data_ptr(), xb.data_ptr(),
+        out.data_ptr(), b, h, wd, c, co,
+        torch.cuda.current_stream(out.device).cuda_stream)
+    _build.check(err, "fpn_concat_conv_fwd")
+    fpn_concat_conv_fwd_cuda.launches += 1
+    return out
+
+
+fpn_concat_conv_fwd_cuda.launches = 0
+
+
+def fpn_concat_conv_dx_cuda(dy, out, w, s):
+    """Input-gradient kernel on CUDA tensors: one launch writes the
+    gradients of all sources."""
+    n, c, co = _shapes(dy, w)
+    b, h, wd, _ = dy.shape
+    _check("dy", dy, (b, h, wd, co), dy.device)
+    _check("out", out, (b, h, wd, co), dy.device)
+    _check("s", s, (co,), dy.device)
+    wt = w.detach().to(torch.bfloat16).permute(0, 1, 2, 4, 3).contiguous()
+    g = torch.empty((b, h, wd, co), dtype=torch.bfloat16, device=dy.device)
+    dxs = [torch.empty((b, h, wd, c), dtype=torch.float32, device=dy.device)
+           for _ in range(n)]
+    ptrs = [d.data_ptr() for d in dxs] + [None] * (4 - n)
+    err = _build.library().robseg_fpn_dx(
+        dy.data_ptr(), out.data_ptr(), wt.data_ptr(), s.data_ptr(),
+        g.data_ptr(), *ptrs, n, b, h, wd, c, co,
+        torch.cuda.current_stream(dy.device).cuda_stream)
+    _build.check(err, "fpn_concat_conv_dx")
+    fpn_concat_conv_dx_cuda.launches += 1
+    return tuple(dxs)
+
+
+fpn_concat_conv_dx_cuda.launches = 0
+
+
+class FpnConcatConvFn(torch.autograd.Function):
+    """Forward and input gradients through the kernels (``use_kernel``) or
+    the plain versions; ``None`` for ``w``, ``s`` and ``t``."""
+
+    @staticmethod
+    def forward(ctx, use_kernel, w, s, t, *xs):
+        fwd = fpn_concat_conv_fwd_cuda if use_kernel else \
+            fpn_concat_conv_fwd_plain
+        out = fwd(list(xs), w, s, t)
+        ctx.use_kernel = use_kernel
+        ctx.save_for_backward(w, s, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        w, s, out = ctx.saved_tensors
+        dx = fpn_concat_conv_dx_cuda if ctx.use_kernel else \
+            fpn_concat_conv_dx_plain
+        return (None, None, None, None) + tuple(dx(dy.contiguous(), out, w,
+                                                   s))
+
+
+def fpn_concat_conv(xs, w, s, t):
+    """The bottleneck on channels-last ``xs``; CUDA tensors go through the
+    kernels, CPU tensors through the plain versions."""
+    return FpnConcatConvFn.apply(xs[0].is_cuda, w, s, t, *xs)
+
+
+def fpn_concat_conv_plain(xs, w, s, t):
+    """The same function through the plain versions on any device."""
+    return FpnConcatConvFn.apply(False, w, s, t, *xs)

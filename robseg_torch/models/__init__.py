@@ -24,11 +24,15 @@ def build_model(model_name: str, backbone: str, n_cls: int) -> nn.Module:
     """The module for a (MODEL.NAME, BACKBONE, N_CLS) triple, in eval mode.
 
     UperNet always runs the split bottleneck and the block kernel, the
-    configuration ``robseg_tpu``'s ``build_model(fused=True)`` selects.
+    configuration ``robseg_tpu``'s ``build_model(fused=True)`` selects; the
+    other fused settings are the module's arguments
+    (``robseg_torch.bench_fused`` builds them).
     """
     if model_name == "UperNetForSemanticSegmentation":
         variant = backbone.split("-")[1]
-        return UperNetForSemanticSegmentation(variant, n_cls).eval()
+        return UperNetForSemanticSegmentation(
+            variant, n_cls, fused_mlp=True, fused_mlp_mode="block",
+            fused_head="split").eval()
     if model_name in _LATER:
         raise NotImplementedError(
             f"{model_name} is not ported yet: the Segmenter and PSPNet/"

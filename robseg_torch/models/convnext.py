@@ -13,6 +13,22 @@ the reference's plain ``state_dict`` layout (``convnext_orig.py``, read by
 
 Inside each stage the activations stay channels-last ``(B, H, W, C)``, the
 layout the block kernel takes; the returned features are NCHW views.
+
+The blocks take JAX's fused settings under JAX's names (``fused_mlp``,
+``fused_mlp_mode``; ``robseg_tpu/models/convnext.py:40-160``), with the
+routing JAX gives them:
+
+  * ``fused_mlp=True, fused_mlp_mode="block"`` (the port's default, the
+    main path): every block through the whole-block kernel
+    (``kernels/convnext_block.py``);
+  * the MLP-tail modes ``residual``, ``recompute``, ``residual_bf16``,
+    ``recompute_bf16``: the depthwise conv as a plain convolution, then,
+    for blocks with dim <= 384, the MLP-tail kernel in that mode
+    (``kernels/convnext_mlp.py``); wider blocks run the tail in plain ops,
+    as JAX does (its kernel's weights outgrow the TPU's VMEM there);
+  * ``fused_mlp=False``: the unfused block in plain ops.
+
+The parameters are the same in every setting.
 """
 
 from __future__ import annotations
@@ -21,8 +37,11 @@ from typing import List
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from robseg_torch.kernels.convnext_block import convnext_block
+from robseg_torch.kernels.convnext_mlp import MODES as MLP_MODES
+from robseg_torch.kernels.convnext_mlp import convnext_mlp
 from robseg_torch.models.layers import LN_EPS, LayerNorm2d
 
 # [depths, dims, aux_head_channels, drop_path_rate]
@@ -36,19 +55,25 @@ CONVNEXT_SETTINGS = {
     "S_CVST": [[3, 3, 27, 3], [96, 192, 384, 768], 384, 0.3],
     "B": [[3, 3, 27, 3], [128, 256, 512, 1024], 512, 0.4],
 }
+FUSED_MLP_MODES = ("block",) + tuple(MLP_MODES)
+MLP_KERNEL_MAX_DIM = 384  # robseg_tpu/models/convnext.py:131
 
 
 class ConvNeXtBlock(nn.Module):
     """dwconv7x7 -> LN -> Linear 4x -> GELU -> Linear -> gamma, residual.
 
-    Eval only: every call goes through ``kernels/convnext_block.py`` (the
-    CUDA kernels for CUDA tensors, the plain version for CPU tensors),
-    which gives input gradients and no parameter gradients. Train mode
-    raises rather than train without weight gradients.
+    Eval only, in every setting: the kernels give input gradients and no
+    weight gradients, and the port has no DropPath. Train mode raises.
     """
 
-    def __init__(self, dim: int, layer_scale_init_value: float = 1.0):
+    def __init__(self, dim: int, layer_scale_init_value: float = 1.0,
+                 fused_mlp: bool = True, fused_mlp_mode: str = "block"):
         super().__init__()
+        if fused_mlp_mode not in FUSED_MLP_MODES:
+            raise ValueError(f"unknown fused_mlp_mode {fused_mlp_mode!r}; "
+                             f"one of {FUSED_MLP_MODES}")
+        self.fused_mlp = fused_mlp
+        self.fused_mlp_mode = fused_mlp_mode
         self.dwconv = nn.Conv2d(dim, dim, 7, padding=3, groups=dim)
         self.norm = nn.LayerNorm(dim, eps=LN_EPS)
         self.pwconv1 = nn.Linear(dim, 4 * dim)
@@ -62,10 +87,21 @@ class ConvNeXtBlock(nn.Module):
                 "ConvNeXtBlock runs in eval mode only: its kernel gives no "
                 "weight gradients. Training (PIR-AT) is a later port slice "
                 "(ROADMAP.md).")
-        return convnext_block(
-            x, self.dwconv.weight, self.dwconv.bias, self.norm.weight,
-            self.norm.bias, self.pwconv1.weight, self.pwconv1.bias,
-            self.pwconv2.weight, self.pwconv2.bias, self.gamma)
+        if self.fused_mlp and self.fused_mlp_mode == "block":
+            return convnext_block(
+                x, self.dwconv.weight, self.dwconv.bias, self.norm.weight,
+                self.norm.bias, self.pwconv1.weight, self.pwconv1.bias,
+                self.pwconv2.weight, self.pwconv2.bias, self.gamma)
+        y = self.dwconv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        if self.fused_mlp and x.shape[-1] <= MLP_KERNEL_MAX_DIM:
+            y = convnext_mlp(
+                y.contiguous(), self.norm.weight, self.norm.bias,
+                self.pwconv1.weight, self.pwconv1.bias, self.pwconv2.weight,
+                self.pwconv2.bias, self.gamma, self.fused_mlp_mode)
+        else:
+            y = self.gamma * self.pwconv2(F.gelu(self.pwconv1(self.norm(y)),
+                                                 approximate="none"))
+        return x + y
 
 
 class CvStStem(nn.Module):
@@ -87,7 +123,8 @@ class ConvNeXt(nn.Module):
     at strides 4, 8, 16, 32."""
 
     def __init__(self, variant: str = "T_CVST",
-                 layer_scale_init_value: float = 1.0):
+                 layer_scale_init_value: float = 1.0, fused_mlp: bool = True,
+                 fused_mlp_mode: str = "block"):
         super().__init__()
         if variant not in CONVNEXT_SETTINGS:
             raise ValueError(f"unknown ConvNeXt variant {variant!r}")
@@ -102,7 +139,8 @@ class ConvNeXt(nn.Module):
                           nn.Conv2d(dims[i - 1], dims[i], 2, stride=2))
             for i in range(1, 4)])
         self.stages = nn.ModuleList([
-            nn.Sequential(*[ConvNeXtBlock(dims[i], layer_scale_init_value)
+            nn.Sequential(*[ConvNeXtBlock(dims[i], layer_scale_init_value,
+                                          fused_mlp, fused_mlp_mode)
                             for _ in range(depths[i])])
             for i in range(4)])
         for i in range(4):

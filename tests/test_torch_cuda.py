@@ -11,6 +11,19 @@ kernel does), the plain version runs float32 without TF32, so the forward
 is held to atol = rtol = 2e-2 and the input gradient to a max error of
 2e-2 relative to its largest entry (the bounds of tests/test_kernels.py).
 The APGD step and the confusion histogram are held to exact equality.
+
+The FPN concat-conv and the bf16-operand MLP-tail kernels against plain
+versions that round where they round: input gradient max error <= 2e-3
+of its largest entry; forward max abs error <= 1e-3 for the FPN, and max
+error <= 2e-3 of its largest entry for the MLP tail, where the rounding
+of gelu(h) to bf16 can go the other way when the two float32 sums for h
+differ in the last bit. Against the float32 plain version without the
+rounding, the JAX package's bounds for bf16 operands against a float32
+reference: FPN forward atol = rtol = 5e-2 (tests/test_kernels.py:394-395),
+MLP forward atol = rtol = 2e-2 (:294-295) and gradient atol = rtol = 5e-2
+(:235-236). The float32-operand
+MLP-tail kernels against the float32 plain version: forward atol 2e-5,
+gradient atol 5e-4 / rtol 1e-3 (:81-104, :142-145).
 """
 
 import numpy as np
@@ -19,6 +32,8 @@ import torch
 
 from robseg_torch import kernels
 from robseg_torch.kernels import convnext_block as cb
+from robseg_torch.kernels import convnext_mlp as cm
+from robseg_torch.kernels import fpn_conv as fc
 
 pytestmark = pytest.mark.cuda
 
@@ -114,3 +129,101 @@ def test_confusion_exact(dev, per_image):
     want = kernels.confusion_matrix_plain(p, t, num_classes=k,
                                           per_image=per_image)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n,shape,co", [(4, (2, 19, 16, 128), 128),
+                                        (4, (1, 33, 37, 96), 96),
+                                        (2, (1, 8, 9, 64), 160)])
+def test_fpn_kernels_match_plain(dev, n, shape, co):
+    rng = np.random.default_rng(13)
+    t = lambda a: torch.tensor(a, dtype=torch.float32,            # noqa
+                               device=dev)
+    xs = [t(rng.normal(size=shape)) for _ in range(n)]
+    w = t(rng.normal(size=(n, 3, 3, shape[-1], co)) / 30)
+    s, b = t(1 + 0.1 * rng.normal(size=co)), t(0.1 * rng.normal(size=co))
+    out = fc.fpn_concat_conv_fwd_cuda(xs, w, s, b)
+    want = fc.fpn_concat_conv_fwd_plain(xs, w, s, b)
+    torch.cuda.synchronize()
+    assert float((out - want).abs().max()) <= 1e-3
+    x32 = torch.cat(xs, -1).permute(0, 3, 1, 2)
+    f32 = torch.relu(torch.nn.functional.conv2d(
+        x32, fc._full_weight(w), padding=1) * s[:, None, None]
+        + b[:, None, None]).permute(0, 2, 3, 1)
+    torch.testing.assert_close(out, f32, atol=5e-2, rtol=5e-2)
+    dy = t(rng.normal(size=out.shape))
+    got = fc.fpn_concat_conv_dx_cuda(dy, out, w, s)
+    want = fc.fpn_concat_conv_dx_plain(dy, out, w, s)
+    torch.cuda.synchronize()
+    assert len(got) == n
+    for a, e in zip(got, want):
+        assert rel_max_err(a, e) <= 2e-3
+
+
+def mlp_params(rng, c, device):
+    """Torch-layout MLP-tail parameters (ls, lb, w1, b1, w2, b2, gamma),
+    the scales of block_params."""
+    p = block_params(rng, c, device)
+    return p[2:]
+
+
+@pytest.mark.parametrize("mode", list(cm.MODES))
+@pytest.mark.parametrize("shape", [(2, 19, 19, 96), (1, 16, 16, 128),
+                                   (1, 15, 15, 192), (1, 8, 8, 256),
+                                   (1, 9, 11, 384)])
+def test_mlp_kernels_match_plain(dev, mode, shape):
+    save_h, bf16 = cm.MODES[mode]
+    rng = np.random.default_rng(5)
+    ls, lb, w1, b1, w2, b2, g = mlp_params(rng, shape[-1], dev)
+    y = torch.tensor(rng.normal(size=shape), dtype=torch.float32,
+                     device=dev)
+    dy = torch.tensor(rng.normal(size=shape), dtype=torch.float32,
+                      device=dev)
+    fwd = (y, ls, lb, w1, b1, w2, b2, g)
+    out, h = cm.convnext_mlp_fwd_cuda(*fwd, save_h=save_h,
+                                      bf16_operands=bf16)
+    want, h_want = cm.convnext_mlp_fwd_plain(*fwd, save_h=save_h,
+                                             bf16_operands=bf16)
+    dxa = (y, dy, ls, lb, w1, b1, w2, g)
+    dx = cm.convnext_mlp_dx_cuda(*dxa, h=h, bf16_operands=bf16)
+    dx_want = cm.convnext_mlp_dx_plain(*dxa, h=h_want, bf16_operands=bf16)
+    torch.cuda.synchronize()
+    assert (h is None) == (not save_h)
+    err = {"fwd": float((out - want).abs().max()),
+           "dx": rel_max_err(dx, dx_want)}
+    if save_h:
+        err["h"] = rel_max_err(h, h_want)
+    if bf16:
+        want32, _ = cm.convnext_mlp_fwd_plain(*fwd)
+        dx32 = cm.convnext_mlp_dx_plain(*dxa)
+        ok = {"fwd": rel_max_err(out, want) <= 2e-3,
+              "dx": err["dx"] <= 2e-3,
+              "fwd32": bool(torch.isclose(out, want32, atol=2e-2,
+                                          rtol=2e-2).all()),
+              "dx32": bool(torch.isclose(dx, dx32, atol=5e-2,
+                                         rtol=5e-2).all()),
+              # a bf16 operand rounded the other way moves h by a bf16
+              # step of one product
+              "h": err.get("h", 0.0) <= 2e-3}
+    else:
+        ok = {"fwd": err["fwd"] <= 2e-5,
+              "dx": bool(torch.isclose(dx, dx_want, atol=5e-4,
+                                       rtol=1e-3).all()),
+              "h": bool(h is None or torch.isclose(h, h_want, atol=2e-5,
+                                                   rtol=0).all())}
+    assert all(ok.values()), (ok, err)
+
+
+def test_fused_model_goes_through_new_kernels(dev):
+    from robseg_torch.models import ModelBundle
+    from robseg_torch.models.upernet import UperNetForSemanticSegmentation
+    torch.manual_seed(0)
+    m = UperNetForSemanticSegmentation("T_CVST", 21, fused_mlp_mode="residual",
+                                       fused_head="pallas")
+    x = torch.rand(1, 3, 64, 64, device=dev, requires_grad=True)
+    kernels.reset_launch_counts()
+    ModelBundle(m.to(dev)).logits_fn(x).sum().backward()
+    counts = kernels.launch_counts()
+    assert counts["convnext_block_fwd"] == counts["convnext_block_dx"] == 0
+    assert counts["convnext_mlp_fwd"] == counts["convnext_mlp_dx"] == 15
+    assert counts["fpn_concat_conv_fwd"] == counts["fpn_concat_conv_dx"] == 1
+    assert torch.isfinite(x.grad).all()

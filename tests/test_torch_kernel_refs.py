@@ -73,7 +73,9 @@ def test_block_fn_gives_no_parameter_gradients():
 
 
 @pytest.mark.parametrize("name", ["convnext_block_fwd", "convnext_block_dx",
-                                  "apgd_linf_step", "confusion_matrix"])
+                                  "apgd_linf_step", "confusion_matrix",
+                                  "fpn_concat_conv_fwd", "fpn_concat_conv_dx",
+                                  "convnext_mlp_fwd", "convnext_mlp_dx"])
 def test_cuda_wrappers_refuse_cpu_tensors(name):
     """A CUDA wrapper raises on a CPU tensor (before any build) and counts
     no launch; only the dispatchers pick the plain version."""
@@ -82,6 +84,7 @@ def test_cuda_wrappers_refuse_cpu_tensors(name):
     p = _torch_params(_jax_params(rng, 96))
     img = torch.rand(2, 3, 4, 4)
     lab = torch.zeros(2, 4, 4, dtype=torch.int64)
+    fw, fv = torch.zeros(1, 3, 3, 96, 96), torch.ones(96)
     calls = {
         "convnext_block_fwd": lambda: kernels.convnext_block_fwd_cuda(x, *p),
         "convnext_block_dx": lambda: kernels.convnext_block_dx_cuda(x, x, *p),
@@ -89,6 +92,13 @@ def test_cuda_wrappers_refuse_cpu_tensors(name):
             img, img, img, img, torch.ones(2), 0.03, 1.0),
         "confusion_matrix": lambda: kernels.confusion_matrix_cuda(
             lab, lab, num_classes=21),
+        "fpn_concat_conv_fwd": lambda: kernels.fpn_concat_conv_fwd_cuda(
+            [x], fw, fv, fv),
+        "fpn_concat_conv_dx": lambda: kernels.fpn_concat_conv_dx_cuda(
+            x, x, fw, fv),
+        "convnext_mlp_fwd": lambda: kernels.convnext_mlp_fwd_cuda(x, *p[2:]),
+        "convnext_mlp_dx": lambda: kernels.convnext_mlp_dx_cuda(
+            x, x, *p[2:7], p[8]),
     }
     before = kernels.launch_counts()[name]
     with pytest.raises(ValueError, match="CUDA"):

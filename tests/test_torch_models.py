@@ -5,7 +5,16 @@ JAX model with the same weights.
 Tolerances: weights exact; logits rtol = atol = 1e-4 (float32 convolutions
 summed in another order); the input gradient of sum(mask-ce-avg) within a
 max abs error of 1e-3 * max|g|.
+
+The fused-variant settings (``fused_head="pallas"`` with an MLP-tail
+mode) against the JAX model without kernels, under the JAX package's
+model-level bounds: logits atol = rtol = 3e-2 and the input gradient of a
+fixed random cotangent within 0.05 * max|g| with float32 MLP operands
+(tests/test_kernels.py:432-438); 0.15 * max|g| and cosine >= 0.99 with
+bf16 ones (:313-318).
 """
+
+import json
 
 import numpy as np
 import pytest
@@ -17,7 +26,9 @@ from robseg_tpu.convert.torch2jax import convert_upernet
 from robseg_tpu.models.upernet import UperNetForSemanticSegmentation as JUN
 from robseg_tpu.ops.losses import ATTACK_CRITERIA as J_CRIT
 from robseg_torch.convert import upernet_state_dict_from_jax
+from robseg_torch import bench_fused
 from robseg_torch.models import ModelBundle, build_model
+from robseg_torch.models.upernet import UperNetForSemanticSegmentation
 from robseg_torch.ops.losses import ATTACK_CRITERIA
 
 VARIANT = "T_CVST"
@@ -143,3 +154,72 @@ def test_train_mode_raises(port_model):
 def test_other_models_name_later_slice():
     with pytest.raises(NotImplementedError, match="later slice"):
         build_model("SegMenter", "vit_small_patch16_384", 21)
+
+
+def test_fused_settings_keep_the_parameters(jax_vars):
+    """Every fused setting has the main path's parameter tree, so
+    ``upernet_state_dict_from_jax`` carries weights into any of them."""
+    sd = upernet_state_dict_from_jax(*jax_vars, VARIANT)
+    for kw in (dict(fused_mlp_mode="residual", fused_head="pallas"),
+               dict(fused_mlp=False, fused_head=False)):
+        m = UperNetForSemanticSegmentation(VARIANT, K, **kw)
+        assert m.state_dict().keys() == sd.keys()
+        m.load_state_dict(sd, strict=True)
+
+
+@pytest.fixture(scope="module")
+def jax_plain_vjp(jax_vars):
+    """The JAX model without kernels: logits and the input gradient of a
+    fixed random cotangent, at 64^2."""
+    rng = np.random.default_rng(5)
+    x = rng.random((1, 3, HW, HW)).astype(np.float32)
+    ct = rng.normal(size=(1, K, HW, HW)).astype(np.float32)
+    v = {"params": jax_vars[0], "batch_stats": jax_vars[1]}
+    jm = JUN(backbone_variant=VARIANT, num_classes=K)
+
+    @jax.jit
+    def f(z, c):
+        lg, vjp = jax.vjp(lambda a: jm.apply(v, a), z)
+        return lg, vjp(c)[0]
+
+    lj, gj = f(jnp.asarray(np.moveaxis(x, 1, -1)),
+               jnp.asarray(np.moveaxis(ct, 1, -1)))
+    return (x, ct, np.moveaxis(np.asarray(lj), -1, 1),
+            np.moveaxis(np.asarray(gj), -1, 1))
+
+
+@pytest.mark.parametrize("mode", ["residual", "recompute_bf16"])
+def test_fused_settings_match_jax_without_kernels(jax_vars, jax_plain_vjp,
+                                                  mode):
+    x, ct, lj, gj = jax_plain_vjp
+    m = UperNetForSemanticSegmentation(VARIANT, K, fused_mlp_mode=mode,
+                                       fused_head="pallas")
+    m.load_state_dict(upernet_state_dict_from_jax(*jax_vars, VARIANT),
+                      strict=True)
+    xt = torch.tensor(x, requires_grad=True)
+    lt = ModelBundle(m).logits_fn(xt)
+    (lt * torch.tensor(ct)).sum().backward()
+    np.testing.assert_allclose(lt.detach().numpy(), lj, atol=3e-2,
+                               rtol=3e-2)
+    g = xt.grad.numpy()
+    err = np.abs(g - gj).max() / np.abs(gj).max()
+    if mode.endswith("_bf16"):
+        cos = float((g * gj).sum() / np.linalg.norm(g) / np.linalg.norm(gj))
+        assert err < 0.15 and cos >= 0.99, (err, cos)
+    else:
+        assert err < 0.05, err
+
+
+def test_bench_fused_entry_point_on_cpu(capsys):
+    bench_fused.main(["--device", "cpu", "--hw", "32", "--batch", "1",
+                      "--n_iter", "1", "--modes", "rs,head",
+                      "--skip_backbone"])
+    lines = capsys.readouterr().out.strip().splitlines()
+    res = json.loads(lines[-1])
+    assert sorted(res) == sorted(
+        f"{k}_{m}" for k in ("attack_step_imgs_per_s", "attack_acc")
+        for m in ("rs", "head"))
+    assert all(0.0 <= res[f"attack_acc_{m}"] <= 1.0 for m in ("rs", "head"))
+    assert lines[-2].startswith("kernel launches: ")
+    with pytest.raises(SystemExit):
+        bench_fused.parse_args(["--bf16"])

@@ -150,7 +150,9 @@ def test_infer_cli_clean_eval(tmp_path):
     # CPU tensors never launch a kernel
     assert json.loads(launches[0][len("kernel launches: "):]) == {
         "convnext_block_fwd": 0, "convnext_block_dx": 0,
-        "apgd_linf_step": 0, "confusion_matrix": 0}
+        "apgd_linf_step": 0, "confusion_matrix": 0,
+        "fpn_concat_conv_fwd": 0, "fpn_concat_conv_dx": 0,
+        "convnext_mlp_fwd": 0, "convnext_mlp_dx": 0}
 
 
 @pytest.mark.parametrize("flags", ["--msf", "--shard", "--fused",
