@@ -8,9 +8,12 @@ result line):
   1. build the CUDA kernels from robseg_torch/csrc (one nvcc per source,
      sm_90a);
   2. each kernel against its plain PyTorch version at the shapes its path
-     gives it (batch 16, 512^2; plus a ragged 119^2 case), with CUDA-event
-     times of both, the time of one PyTorch library call that computes the
-     same function where there is one, and the card's bound for the work;
+     gives it (batch 16, 512^2; plus a ragged 119^2 case; for the FPN
+     kernels also 3 sources of (3, 40, 72, 96) with Co = 160, the channel
+     and output tails, and a line naming the tile, the TMA ring and each
+     shape's persistent grid), with CUDA-event times of both, the time of
+     one PyTorch library call that computes the same function where there
+     is one, and the card's bound for the work;
   3. the full-width UperNet-ConvNeXt-T_CVST (21 classes, seeded random
      weights) on a (2, 3, 512, 512) batch: logits and the input gradient
      of sum(mask-ce-avg) against the same model with every kernel routed
@@ -298,16 +301,32 @@ def phase_kernels(dev, results):
 
 
 def phase_fpn(dev, results):
-    """FPN concat-conv forward and input gradient at the head's shapes."""
+    """FPN concat-conv forward and input gradient at the head's shapes (4
+    sources, C = Co = 512), and at a small shape whose channel (C = 96)
+    and output (Co = 160) tails the kernel's TMA boxes fill with zeros."""
     import torch.nn.functional as F
     from robseg_torch.kernels import fpn_conv as fc
     rng = np.random.default_rng(2)
-    c = co = 512
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    print(f"fpn kernel: tile {fc.TILE_M} pixels x {fc.TILE_N} channels, "
+          f"K-step {fc.TILE_K} channels, {fc.STAGES}-stage TMA ring, 2 "
+          f"consumer warpgroups (wgmma m64n256k16) + 1 producer warpgroup, "
+          f"persistent over {sms} SMs", flush=True)
     fwd = {"max_abs_err": 0.0}
     dxr = {"max_abs_err": 0.0}
-    for shape in [(BATCH, 128, 128, c), (2, 119, 119, c)]:
-        xs = [torch.randn(shape, device=dev) for _ in range(4)]
-        w = torch.tensor(rng.normal(size=(4, 3, 3, c, co)) / 70,
+    for n, shape, co in [(4, (BATCH, 128, 128, 512), 512),
+                         (4, (2, 119, 119, 512), 512),
+                         (3, (3, 40, 72, 96), 160)]:
+        c = shape[-1]
+        pf = fc.plan(*shape[:3], co, 1, sms)
+        pd = fc.plan(*shape[:3], c, n, sms)
+        print(f"fpn plan {n}x{shape} Co={co}: box {pf['box_w']}x"
+              f"{pf['box_h']}; fwd grid {pf['blocks']} blocks over "
+              f"{pf['tiles']} tiles (<= {pf['tiles_per_block']} a block), "
+              f"dx grid {pd['blocks']} blocks over {pd['tiles']} tiles (<= "
+              f"{pd['tiles_per_block']} a block)", flush=True)
+        xs = [torch.randn(shape, device=dev) for _ in range(n)]
+        w = torch.tensor(rng.normal(size=(n, 3, 3, c, co)) / 70,
                          dtype=torch.float32, device=dev)
         s = torch.tensor(1 + 0.1 * rng.normal(size=co), dtype=torch.float32,
                          device=dev)
@@ -329,9 +348,10 @@ def phase_fpn(dev, results):
         dx_want = fc.fpn_concat_conv_dx_plain(dy, out, w, s)
         torch.cuda.synchronize()
         e_dx = max(rel_max_err(a, b) for a, b in zip(dx, dx_want))
-        print(f"fpn_concat_conv 4x{shape}: fwd max_abs_err {e_fwd:.3e} "
-              f"(max|out| {float(out.abs().max()):.3e}; vs unrounded f32 "
-              f"{e_32:.3e}), dx rel_max_err {e_dx:.3e}", flush=True)
+        print(f"fpn_concat_conv {n}x{shape} Co={co}: fwd max_abs_err "
+              f"{e_fwd:.3e} (max|out| {float(out.abs().max()):.3e}; vs "
+              f"unrounded f32 {e_32:.3e}), dx rel_max_err {e_dx:.3e}",
+              flush=True)
         if not (e_fwd <= 1e-3 and close32 and e_dx <= 2e-3):
             raise AssertionError(f"fpn {shape}: fwd {e_fwd}, vs f32 "
                                  f"{e_32}, dx {e_dx}")
@@ -349,17 +369,20 @@ def phase_fpn(dev, results):
                cuda_ms(lambda: F.conv_transpose2d(gbf, wbf, padding=1))]
         del xcat, gbf
         m = out.numel() // co
-        flops = {"bf16": 2 * m * co * 4 * 9 * c}
+        flops = {"bf16": 2 * m * co * n * 9 * c}
         wbytes = 4 * w.numel()
-        fb = (4 * 4 * m * c + 4 * m * co + wbytes, flops)
-        db = (2 * 4 * m * co + 4 * 4 * m * c + wbytes, flops)
-        print(f"fpn_concat_conv 4x{shape}: fwd kernel {t_k[0]:.3f} ms, "
-              f"plain {t_k[1]:.3f} ms, library {lib[0]:.3f} ms, bound "
-              f"{bound(*fb)[0]:.3f} ms ({bound(*fb)[1]}) | dx kernel "
-              f"{t_k[2]:.3f} ms, plain {t_k[3]:.3f} ms, "
-              f"library {lib[1]:.3f} ms, bound {bound(*db)[0]:.3f} ms "
-              f"({bound(*db)[1]}); {flops['bf16'] / t_k[0] / 1e9:.1f} / "
-              f"{flops['bf16'] / t_k[2] / 1e9:.1f} TFLOP/s", flush=True)
+        fb = (4 * n * m * c + 4 * m * co + wbytes, flops)
+        db = (2 * 4 * m * co + 4 * n * m * c + wbytes, flops)
+        print(f"fpn_concat_conv {n}x{shape} Co={co}: fwd kernel "
+              f"{t_k[0]:.3f} ms, plain {t_k[1]:.3f} ms, library "
+              f"{lib[0]:.3f} ms, bound {bound(*fb)[0]:.3f} ms "
+              f"({bound(*fb)[1]}) | dx kernel {t_k[2]:.3f} ms, plain "
+              f"{t_k[3]:.3f} ms, library {lib[1]:.3f} ms, bound "
+              f"{bound(*db)[0]:.3f} ms ({bound(*db)[1]}); "
+              f"{flops['bf16'] / t_k[0] / 1e9:.1f} / "
+              f"{flops['bf16'] / t_k[2] / 1e9:.1f} TFLOP/s, "
+              f"{bound(*fb)[0] / t_k[0]:.1%} / {bound(*db)[0] / t_k[2]:.1%} "
+              "of the bound", flush=True)
         fwd["max_abs_err"] = max(fwd["max_abs_err"], e_fwd)
         dxr["max_abs_err"] = max(dxr["max_abs_err"],
                                  max(float((a - b).abs().max())

@@ -17,211 +17,345 @@
 //
 // Bound on the H100: at batch 16, 512^2 (M = 16*128*128 pixels, C = Co =
 // 512, four sources) each direction is 2*M*Co*(4*9*C) = 4.95 TFLOP of
-// bf16 products, ~5.0 ms at the 989 TFLOP/s dense bf16 peak, against
+// bf16 products, 5.0 ms at the 989 TFLOP/s dense bf16 peak, against
 // ~2.7 GB (forward) and ~3.2 GB (backward) of f32 activations, ~0.8-1.0
 // ms at 3.35 TB/s: compute bound.
 //
-// Design: an implicit GEMM, M = pixels, N = output channels, K = (source,
-// tap, channel). A pre-pass writes each operand map once as bf16 (forward:
-// the four x_i; backward: g, the ReLU mask and the BatchNorm scale folded
-// in), which halves the bytes every K-slice reads. The GEMM block computes
-// a 128 x 128 output tile over K-slices of 32 channels of one (source,
-// tap); cp.async streams the activation slice (zero-filled outside the
-// image: that is the conv's padding) and the pre-packed bf16 weight slice
-// into a 3-stage shared-memory ring, so loads overlap the tensor-core work
-// (mma.sync through nvcuda::wmma, 16x16x16 bf16, f32 accumulators). The
-// weights are staged in shared memory like the activations: fragments
-// read straight from device memory held the block MLP to ~25 TFLOP/s.
-// The blocks that share one 128-pixel row of tiles run next to each other
-// (grid.x = output-channel tiles), so the activation slice is read from
-// L2. No 2048-channel concat exists in memory, forward or backward.
-// wgmma and TMA are later work.
+// Design: one implicit GEMM for both directions, M = pixels, N = output
+// channels, K = (source, tap, 64-channel slice). A pre-pass writes each
+// operand map once as bf16 (forward: the n x_i; backward: g, the ReLU mask
+// and the BatchNorm scale folded in). The GEMM is a persistent,
+// warp-specialised kernel (one block per SM):
+// - Products: `wgmma.mma_async` m64n256k16 (bf16 in, f32 accumulators in
+//   registers). A block computes a 128-pixel x 256-channel tile; two
+//   consumer warpgroups take 64 rows each and read both operands from
+//   shared memory through 128-byte-swizzled descriptors (no fragment
+//   loads, no bank conflicts).
+// - Loads: one producer thread issues TMA (`cp.async.bulk.tensor`) into a
+//   4-stage ring of 16 KB of activations + 32 KB of weights per stage,
+//   with full/empty mbarriers; `setmaxnreg` moves the producer
+//   warpgroup's registers to the consumers. The activation box is 64
+//   channels by a 128-pixel spatial patch of one image (box_w x box_h,
+//   chosen at launch from W); tap (ky, kx) moves its origin by
+//   sign * (kx - 1, ky - 1). TMA zero-fills what lies outside the tensor:
+//   that fill is the conv's padding, the ragged image edge, the channel
+//   tail (C not a multiple of 64) and the output-channel tail, so no
+//   thread computes an address or a bound in the main loop. Tiled mode
+//   (not im2col): a 5-D map {C, W, H, B, source} over the bf16 maps and a
+//   3-D map {K, N, 9 * sources} over the weight panels, each (source, tap)
+//   panel an (N, K) matrix with K contiguous.
+// - K-step: 64 channels, four k16 instructions per warpgroup for each
+//   barrier wait, with no block-wide __syncthreads() in the main loop.
+// - Schedule: tiles walk (output slot, image, patch row, patch column,
+//   N tile) with N innermost, statically strided over the blocks, so the
+//   blocks that run together read the same activation box from L2; the
+//   producer loads the next tile's stages while the consumers write this
+//   tile's outputs straight from their accumulator registers (float2
+//   stores, 32 contiguous bytes per row and warp; pixels outside the
+//   image and channels >= n masked).
+// The descriptors are built on the host in robseg_fpn_fwd / robseg_fpn_dx
+// (cuTensorMapEncodeTiled, looked up at run time through the CUDA runtime,
+// so the link needs no -lcuda) and passed as a __grid_constant__
+// parameter.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int kBM = 128;       // pixels per block
-constexpr int kBN = 128;       // output channels per block
-constexpr int kBK = 32;        // K-slice: 32 channels of one (source, tap)
-constexpr int kStages = 3;     // cp.async ring depth
-constexpr int kThreads = 256;  // 8 warps: 2 (M) x 4 (N), 64 x 32 each
-constexpr int kLDA = kBK + 8;  // padded shared rows (bf16 elements)
-constexpr int kLDB = kBN + 8;
-constexpr int kAStage = kBM * kLDA;
-constexpr int kBStage = kBK * kLDB;
-constexpr size_t kSmem =
-    (size_t)kStages * (kAStage + kBStage) * sizeof(bf16) +
-    (size_t)(kThreads / 32) * 256 * sizeof(float);  // + per-warp epilogue
+constexpr int kBM = 128;         // pixels per tile (one spatial box)
+constexpr int kBN = 256;         // output channels per tile
+constexpr int kBK = 64;          // K-step: 64 channels (128 bytes)
+constexpr int kStages = 4;       // TMA ring depth
+constexpr int kConsumers = 2;    // consumer warpgroups, 64 tile rows each
+constexpr int kThreads = 128 * (kConsumers + 1);  // + the producer's
+constexpr uint32_t kABytes = kBM * kBK * 2;
+constexpr uint32_t kBBytes = kBN * kBK * 2;
+constexpr uint32_t kStageBytes = kABytes + kBBytes;
+// stages (1024-byte aligned for the 128-byte swizzle) and 2 x kStages
+// mbarriers
+constexpr size_t kSmem = 1024 + kStages * kStageBytes + 16 * kStages;
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool pred) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int n = pred ? 16 : 0;  // 0 bytes read: the 16 bytes are zeroed
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-struct Gemm {
-  const bf16* a[4];      // activation maps (B, H, W, ca) bf16, per K-source
-  const bf16* w;         // weight panel (K, n) bf16 of output slot 0
-  int64_t w_slot;        // elements between the panels of output slots
-  float* out[4];         // (B, H, W, n) f32 per output slot (grid.z)
-  const float* s;        // forward epilogue relu(acc * s + t); null: none
+struct Params {
+  CUtensorMap a;    // bf16 maps {ca, W, H, B, k_src}, 128-byte swizzle
+  CUtensorMap b;    // bf16 panels {ca, n, 9 * panels}, 128-byte swizzle
+  float* out[4];    // (B, H, W, n) f32 per output slot
+  const float* s;   // forward epilogue relu(acc * s + t); null: acc as is
   const float* t;
-  int64_t m;             // pixels, B * H * W
-  int h, w_, ca, n;      // image size, channels per K-source, outputs
-  int k_src;             // sources summed over K (forward n, backward 1)
-  int sign;              // +1: a[r + ky - 1, c + kx - 1] (the conv);
-                         // -1: a[r - ky + 1, c - kx + 1] (its transpose)
+  int batch, h, w, n;
+  int k_src;        // sources summed over K (forward n, backward 1)
+  int sign;         // +1: a[r + ky - 1, c + kx - 1] (the conv);
+                    // -1: a[r - ky + 1, c - kx + 1] (its transpose)
+  int box_w_log2;   // the spatial box is box_w x (kBM / box_w) pixels
+  int tiles_x, tiles_y, tiles_n, tiles;
+  int kc;           // K-steps per (source, tap): ceil(ca / kBK)
 };
 
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>
-    FragA;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>
-    FragB;
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
+struct Tile {
+  int slot, b, y0, x0, n0;
+};
 
-__global__ void __launch_bounds__(kThreads)
-fpn_gemm_kernel(const Gemm p) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* As = reinterpret_cast<bf16*>(smem);
-  bf16* Bs = As + kStages * kAStage;
-  float* stg = reinterpret_cast<float*>(Bs + kStages * kBStage);
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int wm = warp / 4, wn = warp % 4;
-  const int n0 = blockIdx.x * kBN;
-  const int64_t m0 = (int64_t)blockIdx.y * kBM;
-  const bf16* wz = p.w + blockIdx.z * p.w_slot;
-  float* outz = p.out[blockIdx.z];
-  const int per = p.ca / kBK;  // K-slices per (source, tap)
-  const int kt_n = p.k_src * 9 * per;
+__device__ __forceinline__ Tile decode(const Params& p, int t) {
+  Tile r;
+  r.n0 = (t % p.tiles_n) * kBN;
+  t /= p.tiles_n;
+  r.x0 = (t % p.tiles_x) << p.box_w_log2;
+  t /= p.tiles_x;
+  r.y0 = (t % p.tiles_y) * (kBM >> p.box_w_log2);
+  t /= p.tiles_y;
+  r.b = t % p.batch;
+  r.slot = t / p.batch;
+  return r;
+}
 
-  // this thread's share of a slice: 16 bytes of two A rows, two B rows
-  const int aseg = tid % 4;
-  int ab[2], ar[2], ac[2];
-  bool aok[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int64_t m = m0 + tid / 4 + 64 * i;
-    aok[i] = m < p.m;
-    const int64_t mm = aok[i] ? m : 0;
-    ac[i] = (int)(mm % p.w_);
-    ar[i] = (int)((mm / p.w_) % p.h);
-    ab[i] = (int)(mm / ((int64_t)p.w_ * p.h));
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+// Waits for the completion of the phase with this parity. A wait that
+// never ends (a broken pipeline) traps after ~2^26 polls, so it becomes a
+// launch error instead of a hung card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  for (uint32_t spins = 0;; ++spins) {
+    uint32_t done;
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (spins == (1u << 26)) __trap();
   }
-  const int bseg = tid % 16;
-  const int bcol = n0 + bseg * 8;
-  const bool bok = bcol < p.n;
+}
 
-  auto load = [&](int kt, int st) {
-    const int src = kt / (9 * per);
-    const int rem = kt - src * 9 * per;
-    const int tap = rem / per;
-    const int c0 = (rem - tap * per) * kBK;
-    const int oy = p.sign * (tap / 3 - 1), ox = p.sign * (tap % 3 - 1);
-    const bf16* a = p.a[src];
-    bf16* as = As + st * kAStage;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int rr = ar[i] + oy, cc = ac[i] + ox;
-      const bool ok = aok[i] && rr >= 0 && rr < p.h && cc >= 0 && cc < p.w_;
-      const bf16* g =
-          ok ? a + (((int64_t)ab[i] * p.h + rr) * p.w_ + cc) * p.ca + c0 +
-                   aseg * 8
-             : a;
-      cp_async16(as + (tid / 4 + 64 * i) * kLDA + aseg * 8, g, ok);
-    }
-    bf16* bs = Bs + st * kBStage;
-    const int64_t k0 = (int64_t)kt * kBK;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int row = tid / 16 + 16 * i;
-      const bf16* g = bok ? wz + (k0 + row) * p.n + bcol : wz;
-      cp_async16(bs + row * kLDB + bseg * 8, g, bok);
-    }
-  };
+__device__ __forceinline__ void tma_load_5d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.tile"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4, %5, %6}], "
+      "[%7];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(c4), "r"(bar)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load_3d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4}], [%5];" ::"r"(
+          dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(bar)
+      : "memory");
+}
 
-  FragC acc[4][2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
+// wgmma descriptor of a K-major tile in shared memory under the 128-byte
+// swizzle: rows of 64 bf16 (128 bytes), 8-row groups 1024 bytes apart.
+// Advancing K by 16 elements adds 32 bytes (2 in the address field).
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
 
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+// keeps the compiler from moving accumulator reads or writes across the
+// asynchronous products
+__device__ __forceinline__ void fence_acc(float (&d)[128]) {
 #pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < kt_n) load(s, s);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < kt_n; ++kt) {
-    cp_async_wait<kStages - 2>();  // slice kt has landed
-    __syncthreads();               // ... and slice kt-1 is no longer read
-    const int nk = kt + kStages - 1;
-    if (nk < kt_n) load(nk, nk % kStages);
-    cp_async_commit();
-    const bf16* as = As + (kt % kStages) * kAStage;
-    const bf16* bs = Bs + (kt % kStages) * kBStage;
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      FragA fa[4];
-      FragB fb[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        wmma::load_matrix_sync(fa[i], as + (wm * 64 + i * 16) * kLDA + kk,
-                               kLDA);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(fb[j], bs + kk * kLDB + wn * 32 + j * 16,
-                               kLDB);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-  }
-  cp_async_wait<0>();
+  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
 
-  // epilogue: each warp stages one 16x16 tile at a time, each lane writes
-  // 8 consecutive channels of one pixel
-  float* my = stg + warp * 256;
-  const int r = lane / 2, c8 = (lane % 2) * 8;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::store_matrix_sync(my, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int64_t m = m0 + wm * 64 + i * 16 + r;
-      const int nn = n0 + wn * 32 + j * 16 + c8;
-      if (m < p.m && nn < p.n) {
-        float v[8];
-#pragma unroll
-        for (int e = 0; e < 8; ++e) v[e] = my[r * 16 + c8 + e];
-        if (p.s) {
-#pragma unroll
-          for (int e = 0; e < 8; ++e)
-            v[e] = fmaxf(v[e] * p.s[nn + e] + p.t[nn + e], 0.0f);
+#define D8(i)                                                          \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),          \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// d (+)= A (64 x 16, K-major) . B (256 x 16, K-major)^T; scale_d = 0
+// overwrites d
+__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128],
+                                                 uint64_t da, uint64_t db,
+                                                 int scale_d) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %130, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1, 0, 0;\n\t}"
+      : D8(0), D8(8), D8(16), D8(24), D8(32), D8(40), D8(48), D8(56),
+        D8(64), D8(72), D8(80), D8(88), D8(96), D8(104), D8(112), D8(120)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+#undef D8
+
+__device__ __forceinline__ void producer(const Params& p, uint32_t base,
+                                         uint32_t bars) {
+  asm volatile("prefetch.tensormap [%0];" ::"l"(
+                   reinterpret_cast<uint64_t>(&p.a))
+               : "memory");
+  asm volatile("prefetch.tensormap [%0];" ::"l"(
+                   reinterpret_cast<uint64_t>(&p.b))
+               : "memory");
+  int it = 0;  // K-steps issued by this block, over all its tiles
+  for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
+    const Tile tl = decode(p, tile);
+    for (int src = 0; src < p.k_src; ++src) {
+      for (int tap = 0; tap < 9; ++tap) {
+        const int x = tl.x0 + p.sign * (tap % 3 - 1);
+        const int y = tl.y0 + p.sign * (tap / 3 - 1);
+        const int panel = (tl.slot + src) * 9 + tap;
+        for (int c = 0; c < p.kc; ++c, ++it) {
+          const int st = it % kStages;
+          const uint32_t full = bars + 8 * st;
+          mbar_wait(bars + 8 * (kStages + st), ((it / kStages) & 1) ^ 1);
+          mbar_expect_tx(full, kStageBytes);
+          const uint32_t a = base + st * kStageBytes;
+          tma_load_5d(a, &p.a, full, c * kBK, x, y, tl.b, src);
+          tma_load_3d(a + kABytes, &p.b, full, c * kBK, tl.n0, panel);
         }
-        float4* o = reinterpret_cast<float4*>(outz + m * p.n + nn);
-        o[0] = make_float4(v[0], v[1], v[2], v[3]);
-        o[1] = make_float4(v[4], v[5], v[6], v[7]);
       }
-      __syncwarp();
     }
+  }
+}
+
+__device__ __forceinline__ void consumer(const Params& p, uint32_t base,
+                                         uint32_t bars, int wg) {
+  const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+  const int ksteps = p.k_src * 9 * p.kc;
+  float d[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) d[i] = 0.0f;
+  int it = 0;
+  for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
+    const Tile tl = decode(p, tile);
+    for (int k = 0; k < ksteps; ++k, ++it) {
+      const int st = it % kStages;
+      mbar_wait(bars + 8 * st, (it / kStages) & 1);
+      const uint32_t a = base + st * kStageBytes;
+      const uint64_t da = smem_desc(a + wg * (kABytes / kConsumers));
+      const uint64_t db = smem_desc(a + kABytes);
+      fence_acc(d);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk)
+        wgmma_m64n256k16(d, da + 2 * kk, db + 2 * kk, (k | kk) != 0);
+      wgmma_commit();
+      fence_acc(d);
+      wgmma_wait<1>();  // the previous K-step's products are done ...
+      fence_acc(d);
+      if (k > 0 && lane == 0)  // ... so its stage goes back to the producer
+        mbar_arrive(bars + 8 * (kStages + (it - 1) % kStages));
+    }
+    wgmma_wait<0>();
+    fence_acc(d);
+    if (lane == 0) mbar_arrive(bars + 8 * (kStages + (it - 1) % kStages));
+
+    // epilogue: this thread holds rows r and r + 8 of the warpgroup's 64,
+    // columns 8j + 2 (lane % 4) + {0, 1} for j < 32
+    float* out = p.out[tl.slot];
+    int64_t off[2];
+    bool ok[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = wg * 64 + warp * 16 + lane / 4 + 8 * hh;
+      const int x = tl.x0 + (r & ((1 << p.box_w_log2) - 1));
+      const int y = tl.y0 + (r >> p.box_w_log2);
+      ok[hh] = x < p.w && y < p.h;
+      off[hh] = (((int64_t)tl.b * p.h + y) * p.w + x) * p.n;
+    }
+    const int col0 = tl.n0 + 2 * (lane % 4);
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const int col = col0 + 8 * j;
+      if (col < p.n) {  // n is even: col + 1 < n too
+        float2 sc = make_float2(1.0f, 1.0f), sh = make_float2(0.0f, 0.0f);
+        if (p.s) {
+          sc = __ldg(reinterpret_cast<const float2*>(p.s + col));
+          sh = __ldg(reinterpret_cast<const float2*>(p.t + col));
+        }
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          float2 v = make_float2(d[4 * j + 2 * hh], d[4 * j + 2 * hh + 1]);
+          if (p.s) {
+            v.x = fmaxf(v.x * sc.x + sh.x, 0.0f);
+            v.y = fmaxf(v.y * sc.y + sh.y, 0.0f);
+          }
+          if (ok[hh]) *reinterpret_cast<float2*>(out + off[hh] + col) = v;
+        }
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+    fpn_gemm_kernel(const __grid_constant__ Params p) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw =
+      static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  const uint32_t base = (raw + 1023) & ~1023u;
+  // full[st] = bars + 8 st (the producer's arrival + the TMA bytes);
+  // empty[st] = bars + 8 (kStages + st) (one arrival per consumer warp)
+  const uint32_t bars = base + kStages * kStageBytes;
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(bars + 8 * st, 1);
+      mbar_init(bars + 8 * (kStages + st), kConsumers * 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  const int wg = threadIdx.x / 128;
+  // one branch per role for the whole kernel: setmaxnreg needs paths that
+  // never meet again
+  if (wg == kConsumers) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+    if (threadIdx.x % 128 == 0) producer(p, base, bars);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
+    consumer(p, base, bars, wg);
   }
 }
 
@@ -256,63 +390,138 @@ unsigned elementwise_blocks(int64_t n) {
   return (unsigned)(b < 132 * 16 ? b : 132 * 16);
 }
 
-int launch_gemm(const Gemm& p, int slots, cudaStream_t stream) {
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime (no -lcuda)
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(f);
+  }
+  return fn;
+}
+
+// A dense bf16 tensor (dims innermost first) under the 128-byte swizzle,
+// zero fill outside it. Returns 0, or -(CUresult) (-1000: no entry point).
+int encode(CUtensorMap* map, const void* ptr, int rank,
+           const cuuint64_t* dims, const cuuint32_t* box) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return -1000;
+  cuuint64_t strides[4];
+  cuuint64_t st = dims[0] * sizeof(bf16);
+  for (int i = 1; i < rank; ++i) {
+    strides[i - 1] = st;
+    st *= dims[i];
+  }
+  const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                        (cuuint32_t)rank, const_cast<void*>(ptr), dims,
+                        strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : -(int)r;
+}
+
+// The GEMM over act (B, H, W, ca) bf16 per K-source (k_src maps back to
+// back) and panels (9 * (k_src + slots - 1), n, ca) bf16, into `slots`
+// outputs (B, H, W, n) f32. box_w (8..128, a power of two) and blocks come
+// from the caller's plan (robseg_torch/kernels/fpn_conv.py::plan).
+int launch_gemm(Params& p, const void* act, const void* panels, int ca,
+                int slots, int box_w, int blocks, cudaStream_t stream) {
+  if (box_w < 8 || box_w > kBM || (box_w & (box_w - 1)) || blocks < 1 ||
+      p.n % 2)
+    return (int)cudaErrorInvalidValue;
+  const int box_h = kBM / box_w;
+  const cuuint64_t adims[5] = {(cuuint64_t)ca, (cuuint64_t)p.w,
+                               (cuuint64_t)p.h, (cuuint64_t)p.batch,
+                               (cuuint64_t)p.k_src};
+  const cuuint32_t abox[5] = {kBK, (cuuint32_t)box_w, (cuuint32_t)box_h, 1,
+                              1};
+  int err = encode(&p.a, act, 5, adims, abox);
+  if (err) return err;
+  const cuuint64_t bdims[3] = {(cuuint64_t)ca, (cuuint64_t)p.n,
+                               (cuuint64_t)(9 * (p.k_src + slots - 1))};
+  const cuuint32_t bbox[3] = {kBK, kBN, 1};
+  err = encode(&p.b, panels, 3, bdims, bbox);
+  if (err) return err;
+  p.box_w_log2 = 0;
+  while ((1 << p.box_w_log2) < box_w) ++p.box_w_log2;
+  p.tiles_x = (p.w + box_w - 1) / box_w;
+  p.tiles_y = (p.h + box_h - 1) / box_h;
+  p.tiles_n = (p.n + kBN - 1) / kBN;
+  const int64_t tiles =
+      (int64_t)slots * p.batch * p.tiles_y * p.tiles_x * p.tiles_n;
+  if (tiles > INT32_MAX) return (int)cudaErrorInvalidValue;
+  p.tiles = (int)tiles;
+  p.kc = (ca + kBK - 1) / kBK;
   cudaError_t e = cudaFuncSetAttribute(
       fpn_gemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)kSmem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((p.n + kBN - 1) / kBN, (unsigned)((p.m + kBM - 1) / kBM), slots);
-  fpn_gemm_kernel<<<grid, kThreads, kSmem, stream>>>(p);
+  fpn_gemm_kernel<<<blocks < p.tiles ? blocks : p.tiles, kThreads, kSmem,
+                    stream>>>(p);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Forward. x0..x3: the n_src (1..4) sources (B, H, W, C) f32 (unused ones
-// null); w: (n_src*9*C, Co) bf16, rows ordered (source, ky, kx, channel);
-// xb: (n_src, B*H*W, C) bf16 scratch; out: (B, H, W, Co) f32.
-// C and Co must be multiples of 32.
+// null); w: the panels (n_src, 3, 3, Co, C) bf16; xb: (n_src, B*H*W, C)
+// bf16 scratch; out: (B, H, W, Co) f32. C and Co must be multiples of 32
+// (TMA strides: multiples of 16 bytes). box_w, blocks: the launch plan.
+// Returns 0, a CUDA error, or -(CUresult) if a tensor map was refused.
 extern "C" int robseg_fpn_fwd(const float* x0, const float* x1,
                               const float* x2, const float* x3, int n_src,
                               const void* w, const float* s, const float* t,
                               void* xb, float* out, int B, int H, int W,
-                              int C, int Co, void* stream) {
+                              int C, int Co, int box_w, int blocks,
+                              void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int64_t m = (int64_t)B * H * W;
   if (m == 0) return 0;
   const float* xs[4] = {x0, x1, x2, x3};
-  Gemm p = {};
-  for (int i = 0; i < n_src; ++i) {
-    bf16* dst = (bf16*)xb + i * m * C;
+  for (int i = 0; i < n_src; ++i)
     to_bf16_kernel<<<elementwise_blocks(m * C / 4), 256, 0, st>>>(
-        xs[i], dst, m * C / 4);
-    p.a[i] = dst;
-  }
+        xs[i], (bf16*)xb + i * m * C, m * C / 4);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  p.w = (const bf16*)w;
-  p.w_slot = 0;
+  Params p = {};
   p.out[0] = out;
   p.s = s;
   p.t = t;
-  p.m = m;
+  p.batch = B;
   p.h = H;
-  p.w_ = W;
-  p.ca = C;
+  p.w = W;
   p.n = Co;
   p.k_src = n_src;
   p.sign = 1;
-  return launch_gemm(p, 1, st);
+  return launch_gemm(p, xb, w, C, 1, box_w, blocks, st);
 }
 
-// Input gradients. dy, out: (B, H, W, Co) f32; wt: (n_src, 9*Co, C) bf16,
-// rows ordered (ky, kx, output channel) per source; g: (B*H*W, Co) bf16
-// scratch; dx0..dx3: (B, H, W, C) f32 per source.
+// Input gradients. dy, out: (B, H, W, Co) f32; wt: the panels (n_src, 3,
+// 3, C, Co) bf16, the weight as stored; g: (B*H*W, Co) bf16 scratch;
+// dx0..dx3: (B, H, W, C) f32 per source.
 extern "C" int robseg_fpn_dx(const float* dy, const float* out,
                              const void* wt, const float* s, void* g,
                              float* dx0, float* dx1, float* dx2, float* dx3,
                              int n_src, int B, int H, int W, int C, int Co,
-                             void* stream) {
+                             int box_w, int blocks, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int64_t m = (int64_t)B * H * W;
   if (m == 0) return 0;
@@ -320,20 +529,16 @@ extern "C" int robseg_fpn_dx(const float* dy, const float* out,
       dy, out, s, (bf16*)g, m * Co, Co);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  Gemm p = {};
-  p.a[0] = (const bf16*)g;
-  p.w = (const bf16*)wt;
-  p.w_slot = (int64_t)9 * Co * C;
+  Params p = {};
   float* dxs[4] = {dx0, dx1, dx2, dx3};
   for (int i = 0; i < 4; ++i) p.out[i] = dxs[i];
   p.s = nullptr;
   p.t = nullptr;
-  p.m = m;
+  p.batch = B;
   p.h = H;
-  p.w_ = W;
-  p.ca = Co;
+  p.w = W;
   p.n = C;
   p.k_src = 1;
   p.sign = -1;
-  return launch_gemm(p, n_src, st);
+  return launch_gemm(p, g, wt, Co, n_src, box_w, blocks, st);
 }

@@ -18,6 +18,12 @@ convolve in float32, so the kernel can be held to them tightly.
 
 Differentiable with respect to ``xs`` only: ``w``, ``s`` and ``t`` are
 attack-time constants and get ``None``, as the JAX VJP gives them zeros.
+
+The kernels are one implicit GEMM (M = pixels, N = output channels, K =
+(source, tap, 64-channel slice)) that reads its operands through TMA:
+``weight_panels`` packs the weights into the bf16 panels it reads, and
+``plan`` is its persistent schedule (the spatial box of a 128-pixel tile
+and the number of blocks), which the wrappers pass to it.
 """
 
 from __future__ import annotations
@@ -56,6 +62,40 @@ def fpn_concat_conv_dx_plain(dy, out, w, s):
                  for i in range(w.shape[0]))
 
 
+# the kernel's tile (csrc/fpn_conv.cu): 128 pixels by 256 output channels,
+# K-steps of 64 channels through a 4-stage TMA ring
+TILE_M, TILE_N, TILE_K, STAGES = 128, 256, 64, 4
+
+
+def weight_panels(w: torch.Tensor, transpose: bool) -> torch.Tensor:
+    """The bf16 weight panels the kernel reads: for each (source, tap) an
+    (N, K) matrix with K contiguous. Forward (N = Co, K = C):
+    ``(n, 3, 3, Co, C)``; input gradient (``transpose``, N = C, K = Co):
+    the weight as stored, ``(n, 3, 3, C, Co)``."""
+    wb = w.detach().to(torch.bfloat16)
+    return (wb if transpose else wb.transpose(3, 4)).contiguous()
+
+
+def plan(b: int, h: int, w: int, n: int, slots: int, sms: int) -> dict:
+    """The kernel's persistent schedule. A tile is a ``box_w x box_h`` =
+    128-pixel patch of one image by 256 output channels; ``box_w`` is the
+    power of two in 8..128 that needs the fewest tiles (the widest on a
+    tie). Tiles walk (output slot, image, patch row, patch column, N tile),
+    N innermost, strided over ``blocks = min(sms, tiles)`` blocks."""
+    def patches(bw):
+        return -(-w // bw) * -(-h // (TILE_M // bw))
+
+    box_w = min((128, 64, 32, 16, 8), key=patches)
+    tiles = slots * b * patches(box_w) * -(-n // TILE_N)
+    blocks = max(1, min(sms, tiles))
+    return {"box_w": box_w, "box_h": TILE_M // box_w, "tiles": tiles,
+            "blocks": blocks, "tiles_per_block": -(-tiles // blocks)}
+
+
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _check(name: str, t: torch.Tensor, shape, device,
            contiguous: bool = True) -> None:
     if (not t.is_cuda or t.device != device or t.dtype != torch.float32
@@ -76,7 +116,7 @@ def _shapes(x0: torch.Tensor, w: torch.Tensor):
         raise ValueError(f"fpn_concat_conv: no kernel for {n} sources, "
                          f"C={c}, Co={co} (1-4 sources, C and Co multiples "
                          "of 32)")
-    # any strides: the wrappers pack it anew
+    # any strides: the wrappers pack it into panels
     _check("w", w, (n, 3, 3, c, co), x0.device, contiguous=False)
     return n, c, co
 
@@ -92,7 +132,8 @@ def fpn_concat_conv_fwd_cuda(xs, w, s, t):
         _check(f"xs[{i}]", x, (b, h, wd, c), xs[0].device)
     _check("s", s, (co,), xs[0].device)
     _check("t", t, (co,), xs[0].device)
-    wp = w.detach().to(torch.bfloat16).reshape(n * 9 * c, co).contiguous()
+    wp = weight_panels(w, transpose=False)
+    pl = plan(b, h, wd, co, 1, _sms(xs[0].device))
     xb = torch.empty((n, b, h, wd, c), dtype=torch.bfloat16,
                      device=xs[0].device)
     out = torch.empty((b, h, wd, co), dtype=torch.float32,
@@ -100,7 +141,7 @@ def fpn_concat_conv_fwd_cuda(xs, w, s, t):
     ptrs = [x.data_ptr() for x in xs] + [None] * (4 - n)
     err = _build.library().robseg_fpn_fwd(
         *ptrs, n, wp.data_ptr(), s.data_ptr(), t.data_ptr(), xb.data_ptr(),
-        out.data_ptr(), b, h, wd, c, co,
+        out.data_ptr(), b, h, wd, c, co, pl["box_w"], pl["blocks"],
         torch.cuda.current_stream(out.device).cuda_stream)
     _build.check(err, "fpn_concat_conv_fwd")
     fpn_concat_conv_fwd_cuda.launches += 1
@@ -118,14 +159,15 @@ def fpn_concat_conv_dx_cuda(dy, out, w, s):
     _check("dy", dy, (b, h, wd, co), dy.device)
     _check("out", out, (b, h, wd, co), dy.device)
     _check("s", s, (co,), dy.device)
-    wt = w.detach().to(torch.bfloat16).permute(0, 1, 2, 4, 3).contiguous()
+    wt = weight_panels(w, transpose=True)
+    pl = plan(b, h, wd, c, n, _sms(dy.device))
     g = torch.empty((b, h, wd, co), dtype=torch.bfloat16, device=dy.device)
     dxs = [torch.empty((b, h, wd, c), dtype=torch.float32, device=dy.device)
            for _ in range(n)]
     ptrs = [d.data_ptr() for d in dxs] + [None] * (4 - n)
     err = _build.library().robseg_fpn_dx(
         dy.data_ptr(), out.data_ptr(), wt.data_ptr(), s.data_ptr(),
-        g.data_ptr(), *ptrs, n, b, h, wd, c, co,
+        g.data_ptr(), *ptrs, n, b, h, wd, c, co, pl["box_w"], pl["blocks"],
         torch.cuda.current_stream(dy.device).cuda_stream)
     _build.check(err, "fpn_concat_conv_dx")
     fpn_concat_conv_dx_cuda.launches += 1

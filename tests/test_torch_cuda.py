@@ -131,9 +131,17 @@ def test_confusion_exact(dev, per_image):
     assert torch.equal(got, want)
 
 
+# the kernel's edges: C = 96 (a channel tail against 64-channel K-steps),
+# Co = 160 (an output tail against 256-wide tiles), 1 to 4 sources, 8 x 9
+# maps smaller than one 16 x 8 box, and (8, 64, 64) with 256 tiles, more
+# than the 132 persistent blocks
 @pytest.mark.parametrize("n,shape,co", [(4, (2, 19, 16, 128), 128),
                                         (4, (1, 33, 37, 96), 96),
-                                        (2, (1, 8, 9, 64), 160)])
+                                        (2, (1, 8, 9, 64), 160),
+                                        (1, (2, 19, 16, 96), 160),
+                                        (3, (1, 8, 9, 96), 160),
+                                        (3, (3, 40, 72, 96), 160),
+                                        (1, (8, 64, 64, 64), 64)])
 def test_fpn_kernels_match_plain(dev, n, shape, co):
     rng = np.random.default_rng(13)
     t = lambda a: torch.tensor(a, dtype=torch.float32,            # noqa

@@ -10,19 +10,27 @@ sides compute the same float32 function, held to atol 1e-5 with rtol
 tests/test_kernels.py:378-382. The backward's rounding of g with any s is
 held against the TPU kernel's own expression (fpn_conv.py:95-98) in JAX.
 The CUDA kernels are held against these plain versions on the card
-(tests/test_torch_cuda.py, chip_smoke.py).
+(tests/test_torch_cuda.py, chip_smoke.py). What the kernel reads is held
+here: an implicit GEMM written in the kernel's order (its plan's tiles,
+(source, tap, 64-channel slice) K-steps over the packed weight panels, TMA
+boxes zero-filled outside the tensors) equals the plain versions and the
+JAX oracle at atol 1e-5 in float32.
 """
 
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 import jax
 import jax.numpy as jnp
 
 from robseg_tpu.kernels.fpn_conv import fpn_concat_conv_reference
-from robseg_torch.kernels.fpn_conv import (fpn_concat_conv,
+from robseg_torch.kernels.fpn_conv import (TILE_K, TILE_M, TILE_N,
+                                           fpn_concat_conv,
                                            fpn_concat_conv_dx_plain,
-                                           fpn_concat_conv_plain)
+                                           fpn_concat_conv_fwd_plain,
+                                           fpn_concat_conv_plain, plan,
+                                           weight_panels)
 
 
 def _bf(a: np.ndarray) -> np.ndarray:
@@ -103,3 +111,111 @@ def test_no_parameter_gradients():
     assert all(x.grad is not None and torch.isfinite(x.grad).all()
                for x in xt)
     assert all(p.grad is None for p in params)
+
+
+def _implicit_gemm(acts, panels, n, sign, slots, s=None, t=None):
+    """csrc/fpn_conv.cu's GEMM in plain PyTorch, in the kernel's order.
+    ``acts`` (k_src, B, H, W, ca) are the bf16-valued maps, ``panels`` (9 *
+    (k_src + slots - 1), n, ca) the packed weights. Walks the plan's tiles
+    (N innermost) and, in each, the (source, tap, 64-channel slice)
+    K-steps; each operand is a box that is zero outside the tensor (the
+    TMA fill: the conv's padding, the image edge, the channel and output
+    tails)."""
+    k_src, b, h, w, ca = acts.shape
+    pl = plan(b, h, w, n, slots, sms=132)
+    bw, bh = pl["box_w"], pl["box_h"]
+    tx, ty, tn = -(-w // bw), -(-h // bh), -(-n // TILE_N)
+    kc = -(-ca // TILE_K)
+    # zero fill: one pixel before the image, a box after it, the channels
+    # up to whole K-steps, the output channels up to whole tiles
+    ap = F.pad(acts, (0, kc * TILE_K - ca, 1, bw + 1, 1, bh + 1))
+    pp = F.pad(panels, (0, kc * TILE_K - ca, 0, tn * TILE_N - n))
+    out = torch.zeros(slots, b, h, w, n)
+    assert pl["tiles"] == slots * b * ty * tx * tn
+    for tile in range(pl["tiles"]):
+        nt, r = tile % tn, tile // tn
+        px, r = r % tx, r // tx
+        py, r = r % ty, r // ty
+        bi, slot = r % b, r // b
+        x0, y0, n0 = px * bw, py * bh, nt * TILE_N
+        acc = torch.zeros(TILE_M, TILE_N)
+        for src in range(k_src):
+            for tap in range(9):
+                x = x0 + sign * (tap % 3 - 1)
+                y = y0 + sign * (tap // 3 - 1)
+                for c in range(0, kc * TILE_K, TILE_K):
+                    a = ap[src, bi, y + 1:y + 1 + bh, x + 1:x + 1 + bw,
+                           c:c + TILE_K].reshape(TILE_M, TILE_K)
+                    wb = pp[(slot + src) * 9 + tap, n0:n0 + TILE_N,
+                            c:c + TILE_K]
+                    acc += a @ wb.T
+        v = acc.reshape(bh, bw, TILE_N)
+        if s is not None:
+            v = torch.relu(v * F.pad(s, (0, tn * TILE_N - n))[n0:n0 + TILE_N]
+                           + F.pad(t, (0, tn * TILE_N - n))[n0:n0 + TILE_N])
+        hh, ww, nn = min(bh, h - y0), min(bw, w - x0), min(TILE_N, n - n0)
+        out[slot, bi, y0:y0 + hh, x0:x0 + ww, n0:n0 + nn] = v[:hh, :ww, :nn]
+    return out
+
+
+# C = 96: a channel tail against 64-channel K-steps; Co = 160: an output
+# tail against 256-wide tiles; W = 10: two 16 x 8 boxes per image
+@pytest.mark.parametrize("n,shape,co", [(3, (1, 9, 10, 96), 160),
+                                        (1, (1, 9, 10, 64), 96)])
+def test_kernel_order_gemm_matches_plain_and_jax(n, shape, co):
+    xs, w, s, t, dy = _case(7, n, shape, co)
+    xt = [torch.tensor(x) for x in xs]
+    wt, st, tt = torch.tensor(w), torch.tensor(s), torch.tensor(t)
+    acts = torch.stack([x.to(torch.bfloat16).float() for x in xt])
+    got = _implicit_gemm(acts, weight_panels(wt, False).float().reshape(
+        n * 9, co, shape[-1]), co, 1, 1, st, tt)[0]
+    want = fpn_concat_conv_fwd_plain(xt, wt, st, tt)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    oracle, vjp = jax.vjp(
+        lambda *x: fpn_concat_conv_reference(x, jnp.asarray(_bf(w)),
+                                             (jnp.asarray(s),
+                                              jnp.asarray(t))),
+        *[jnp.asarray(_bf(x)) for x in xs])
+    np.testing.assert_allclose(got.numpy(), np.asarray(oracle), atol=1e-5,
+                               rtol=1e-5)
+
+    dyt = torch.tensor(dy)
+    g = (dyt.to(torch.bfloat16) * st.to(torch.bfloat16)).float() * (want > 0)
+    got = _implicit_gemm(g[None], weight_panels(wt, True).float().reshape(
+        n * 9, shape[-1], co), shape[-1], -1, n)
+    want = fpn_concat_conv_dx_plain(dyt, want, wt, st)
+    for i, (a, e, o) in enumerate(zip(got, want, vjp(jnp.asarray(dy)))):
+        torch.testing.assert_close(a, e, atol=1e-5, rtol=1e-4)
+        np.testing.assert_allclose(a.numpy(), np.asarray(o), atol=1e-5,
+                                   rtol=1e-4)
+
+
+def test_weight_panels_are_k_major_per_tap():
+    w = torch.randn(2, 3, 3, 64, 96)
+    fwd, dx = weight_panels(w, False), weight_panels(w, True)
+    assert fwd.dtype == dx.dtype == torch.bfloat16
+    assert fwd.is_contiguous() and dx.is_contiguous()
+    # forward: (source, ky, kx) panels of (N = Co, K = C)
+    assert fwd.shape == (2, 3, 3, 96, 64)
+    assert torch.equal(fwd[1, 2, 0, 5, 7], w[1, 2, 0, 7, 5].to(torch.bfloat16))
+    # input gradient: (N = C, K = Co), the weight as stored
+    assert torch.equal(dx, w.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("b,h,w,n,slots,want", [
+    # batch 16 at 512^2: 128 x 1 boxes, N innermost in 2 tiles of 256
+    (16, 128, 128, 512, 1, (128, 1, 4096, 132)),
+    (16, 128, 128, 512, 4, (128, 1, 16384, 132)),
+    # the ragged 473^2 crop: 119 rows of one 128 x 1 box
+    (2, 119, 119, 512, 1, (128, 1, 476, 132)),
+    # a map smaller than one box; W = 64: 64 x 2 boxes
+    (1, 8, 9, 160, 1, (16, 8, 1, 1)),
+    (8, 64, 64, 64, 1, (64, 2, 256, 132)),
+    # 72 x 40: 5 x 5 boxes of 16 x 8 (40 of 128 x 1)
+    (3, 40, 72, 160, 1, (16, 8, 75, 75)),
+])
+def test_plan_tiles(b, h, w, n, slots, want):
+    pl = plan(b, h, w, n, slots, sms=132)
+    assert (pl["box_w"], pl["box_h"], pl["tiles"], pl["blocks"]) == want
+    assert pl["box_w"] * pl["box_h"] == TILE_M
+    assert pl["tiles_per_block"] == -(-pl["tiles"] // pl["blocks"])
