@@ -8,7 +8,9 @@ result line):
   1. build the CUDA kernels from robseg_torch/csrc (one nvcc per source,
      sm_90a);
   2. each kernel against its plain PyTorch version at the shapes its path
-     gives it (batch 16, 512^2; plus a ragged 119^2 case; for the FPN
+     gives it (batch 16, 512^2; plus a ragged 119^2 case; for the block
+     kernels also each kernel's own time per stage from torch.profiler and
+     the stage's roofline share; for the FPN
      kernels also 3 sources of (3, 40, 72, 96) with Co = 160, the channel
      and output tails, and a line naming the tile, the TMA ring and each
      shape's persistent grid), with CUDA-event times of both, the time of
@@ -23,6 +25,9 @@ result line):
   4. APGD on the main path at batch 16, 512^2 (mask-ce-avg, tracking
      ce-avg, random start) for 20 and for 4 iterations: whole-run and
      marginal step*imgs/s and peak memory;
+  4p. a torch.profiler account of one main-path iteration's work (a
+     forward and input gradient at batch 16): kernel time by kind and the
+     device's idle share;
   4b. the same for the fused-variant path (fused_mlp_mode="residual",
      fused_head="pallas") for 10 and for 4 iterations;
   5. the SEA CLI (``python -m robseg_torch.infer``) on a fixture VOC tree
@@ -177,6 +182,52 @@ def rel_max_err(got, want) -> float:
     return float((got - want).abs().max() / want.abs().max())
 
 
+def kernel_split(fn, reps: int = 3) -> list:
+    """Each CUDA kernel's own time in one call of ``fn`` (torch.profiler
+    over ``reps`` calls after a warm-up): [(name, ms per call, launches
+    per call)], longest first."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = []
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = ev.self_cuda_time_total
+        if us > 0:
+            rows.append((ev.key, us / reps / 1e3, ev.count / reps))
+    if not rows:
+        raise AssertionError("torch.profiler recorded no device time")
+    return sorted(rows, key=lambda r: -r[1])
+
+
+def short_name(name: str) -> str:
+    """A profiled kernel's name without its arguments and namespaces."""
+    name = name.replace("void ", "").replace("(anonymous namespace)::", "")
+    depth, out = 0, []
+    for ch in name:
+        if ch == "(" and depth == 0:
+            break
+        depth += (ch == "<") - (ch == ">")
+        out.append(ch)
+    return "".join(out)[:80]
+
+
+def block_part(name: str) -> str:
+    """Which part of the block kernels a profiled kernel is."""
+    if "mlp_fused_kernel" in name or "mlp_gemm_kernel" in name:
+        return "mlp"
+    if "dwconv_ln_kernel" in name or "dwcorr_kernel" in name:
+        return "depthwise"
+    if "ln_bwd_kernel" in name:
+        return "ln_bwd"
+    return "packing"
+
+
 def phase_kernels(dev, results):
     from robseg_torch.kernels import apgd_step, confusion
     from robseg_torch.kernels import convnext_block as cb
@@ -184,11 +235,15 @@ def phase_kernels(dev, results):
     torch.manual_seed(0)
 
     fwd = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
-           "library_ms": None}
+           "library_ms": None, "stages": []}
     dxr = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
-           "library_ms": None}
+           "library_ms": None, "stages": []}
     stages = [(BATCH, 128, 128, 96), (BATCH, 64, 64, 192),
               (BATCH, 32, 32, 384), (BATCH, 16, 16, 768)]
+    print(f"block kernels: fused MLP (hidden layer on chip) at C <= "
+          f"{cb.FUSED_MAX_C}, two GEMMs through a bf16 hidden layer above; "
+          f"{cb.TILE_M}-token tiles, {cb.HIDDEN_CHUNK}-wide hidden chunks "
+          f"and K-steps, TMA + wgmma", flush=True)
     for shape in stages + [(2, 119, 119, 96)]:
         p = block_params(rng, shape[-1], dev)
         x = torch.randn(shape, device=dev)
@@ -221,6 +276,27 @@ def phase_kernels(dev, results):
               f"{e_dx:.3e} (abs {float((dx - dx_want).abs().max()):.3e}), "
               f"kernel {t[2]:.3f} ms, plain {t[3]:.3f} ms, bound "
               f"{bound(*db)[0]:.4f} ms", flush=True)
+        # each direction's kernels, one by one (torch.profiler), and the
+        # stage's roofline share
+        for row, name, fn, bb, tk, tp in (
+                (fwd, "fwd", lambda: cb.convnext_block_fwd_cuda(x, *p), fb,
+                 t[0], t[1]),
+                (dxr, "dx", lambda: cb.convnext_block_dx_cuda(x, dy, *p), db,
+                 t[2], t[3])):
+            split = kernel_split(fn)
+            parts = {}
+            for kname, ms, _ in split:
+                part = block_part(kname)
+                parts[part] = parts.get(part, 0.0) + ms
+            bms, bby = bound(*bb)
+            print(f"block {shape} {name} split: " + "; ".join(
+                f"{short_name(k)} {ms:.4f} ms x{n:g}" for k, ms, n in split)
+                + f" | by part {json.dumps(parts)} | bound {bms:.4f} ms "
+                f"({bby}), roofline share {bms / tk:.1%}", flush=True)
+            row["stages"].append({
+                "shape": list(shape), "ms": tk, "plain_ms": tp,
+                "bound_ms": bms, "bound_by": bby, "share": bms / tk,
+                "parts_ms": parts})
         fwd["max_abs_err"] = max(fwd["max_abs_err"], e_fwd)
         dxr["max_abs_err"] = max(dxr["max_abs_err"],
                                  float((dx - dx_want).abs().max()))
@@ -664,6 +740,71 @@ def phase_apgd(dev, logits_fn, n_iter=20, label="main path"):
           f"GiB, final mean acc {float(res.acc.mean()):.4f}", flush=True)
 
 
+def kernel_kind(name: str) -> str:
+    """The kind of a profiled kernel, for the main path's time account."""
+    part = block_part(name)
+    if part != "packing":
+        return f"block {part}"
+    low = name.lower()
+    if "norm" in low or "bn_" in low:
+        return "elementwise, norms, resize, loss"
+    # cuDNN's kernels name the convolution pass (fprop, dgrad, wgrad) or
+    # an implicit GEMM; cuBLAS's are plain gemm kernels (sm90_xmma_gemm_..)
+    if any(k in low for k in ("cudnn", "conv", "dgrad", "wgrad", "fprop",
+                              "implicit")):
+        return "convolution (cuDNN)"
+    if "gemm" in low or "cutlass" in low:
+        return "matmul (cuBLAS)"
+    if "apgd" in low or "confusion" in low:
+        return "APGD step, confusion"
+    return "elementwise, norms, resize, loss"
+
+
+def phase_profile(dev, logits_fn, reps: int = 2):
+    """Where one main-path APGD iteration's device time goes: ``reps``
+    forward + input-gradient passes of the model at batch 16 (the work of
+    one iteration) under torch.profiler, kernel time by kind and the
+    device's idle share of the window."""
+    from torch.profiler import ProfilerActivity, profile
+    from robseg_torch.ops.losses import ATTACK_CRITERIA
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.rand((BATCH, 3, HW, HW), device=dev, generator=g)
+    y = torch.randint(0, N_CLS, (BATCH, HW, HW), device=dev, generator=g)
+
+    def step():
+        xg = x.clone().requires_grad_(True)
+        loss = ATTACK_CRITERIA["mask-ce-avg"](logits_fn(xg), y).sum()
+        return torch.autograd.grad(loss, xg)[0]
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / reps
+    kinds, top = {}, []
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = ev.self_cuda_time_total
+        if us <= 0:
+            continue
+        ms = us / reps / 1e3
+        kinds[kernel_kind(ev.key)] = kinds.get(kernel_kind(ev.key), 0.0) + ms
+        top.append((ms, short_name(ev.key), ev.count // reps))
+    busy = sum(kinds.values())
+    print(f"main-path profile, one forward + input gradient at batch 16: "
+          f"{wall:.1f} ms wall, {busy:.1f} ms of kernels, idle share "
+          f"{max(0.0, 1 - busy / wall):.4f}; by kind: " + "; ".join(
+              f"{k} {v:.1f} ms ({v / busy:.1%})" for k, v in
+              sorted(kinds.items(), key=lambda kv: -kv[1])), flush=True)
+    print("main-path profile, top kernels: " + "; ".join(
+        f"{n} {ms:.2f} ms x{c}" for ms, n, c in sorted(top, reverse=True)[
+            :12]), flush=True)
+
+
 def phase_cli(tmp: str) -> dict:
     import yaml
     root = os.path.join(tmp, "voc")
@@ -797,6 +938,7 @@ def main():
     kernels.reset_launch_counts()
     phase_apgd(dev, bundle.logits_fn)
     main_counts = kernels.launch_counts()
+    phase_profile(dev, bundle.logits_fn)
     fused_fn = fused_model(dev, weights, fused_mlp_mode="residual",
                            fused_head="pallas")
     kernels.reset_launch_counts()
@@ -822,7 +964,8 @@ def main():
          "replaces": REPLACES[name], "launches": launches[name],
          **{k: results[name][k] for k in ("max_abs_err", "ms", "plain_ms",
                                           "bound_ms", "bound_by",
-                                          "library_ms")}}
+                                          "library_ms", "stages")
+            if k in results[name]}}
         for name in REPLACES]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

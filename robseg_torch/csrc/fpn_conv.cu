@@ -56,12 +56,15 @@
 // The descriptors are built on the host in robseg_fpn_fwd / robseg_fpn_dx
 // (cuTensorMapEncodeTiled, looked up at run time through the CUDA runtime,
 // so the link needs no -lcuda) and passed as a __grid_constant__
-// parameter.
+// parameter. The barrier, TMA, descriptor and wgmma helpers and the map
+// encoding live in hopper.cuh, shared with convnext_block.cu.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 typedef __nv_bfloat16 bf16;
 
@@ -111,125 +114,6 @@ __device__ __forceinline__ Tile decode(const Params& p, int t) {
   r.slot = t / p.batch;
   return r;
 }
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::
-                   "r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
-               : "memory");
-}
-// Waits for the completion of the phase with this parity. A wait that
-// never ends (a broken pipeline) traps after ~2^26 polls, so it becomes a
-// launch error instead of a hung card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  for (uint32_t spins = 0;; ++spins) {
-    uint32_t done;
-    asm volatile(
-        "{\n\t.reg .pred p;\n\t"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-        "selp.u32 %0, 1, 0, p;\n\t}"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (spins == (1u << 26)) __trap();
-  }
-}
-
-__device__ __forceinline__ void tma_load_5d(uint32_t dst,
-                                            const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1,
-                                            int c2, int c3, int c4) {
-  asm volatile(
-      "cp.async.bulk.tensor.5d.shared::cluster.global.tile"
-      ".mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4, %5, %6}], "
-      "[%7];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(c3), "r"(c4), "r"(bar)
-      : "memory");
-}
-__device__ __forceinline__ void tma_load_3d(uint32_t dst,
-                                            const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1,
-                                            int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.tile"
-      ".mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4}], [%5];" ::"r"(
-          dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(bar)
-      : "memory");
-}
-
-// wgmma descriptor of a K-major tile in shared memory under the 128-byte
-// swizzle: rows of 64 bf16 (128 bytes), 8-row groups 1024 bytes apart.
-// Advancing K by 16 elements adds 32 bytes (2 in the address field).
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-// keeps the compiler from moving accumulator reads or writes across the
-// asynchronous products
-__device__ __forceinline__ void fence_acc(float (&d)[128]) {
-#pragma unroll
-  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-#define D8(i)                                                          \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),          \
-      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-
-// d (+)= A (64 x 16, K-major) . B (256 x 16, K-major)^T; scale_d = 0
-// overwrites d
-__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128],
-                                                 uint64_t da, uint64_t db,
-                                                 int scale_d) {
-  asm volatile(
-      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %130, 0;\n\t"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, "
-      "%72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, "
-      "%88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, "
-      "%104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, "
-      "%120, %121, %122, %123, %124, %125, %126, %127}, "
-      "%128, %129, p, 1, 1, 0, 0;\n\t}"
-      : D8(0), D8(8), D8(16), D8(24), D8(32), D8(40), D8(48), D8(56),
-        D8(64), D8(72), D8(80), D8(88), D8(96), D8(104), D8(112), D8(120)
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-#undef D8
 
 __device__ __forceinline__ void producer(const Params& p, uint32_t base,
                                          uint32_t bars) {
@@ -281,7 +165,7 @@ __device__ __forceinline__ void consumer(const Params& p, uint32_t base,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kBK / 16; ++kk)
-        wgmma_m64n256k16(d, da + 2 * kk, db + 2 * kk, (k | kk) != 0);
+        wgmma_ss<256>(d, da + 2 * kk, db + 2 * kk, (k | kk) != 0);
       wgmma_commit();
       fence_acc(d);
       wgmma_wait<1>();  // the previous K-step's products are done ...
@@ -388,54 +272,6 @@ __global__ void relu_grad_kernel(const float* __restrict__ dy,
 unsigned elementwise_blocks(int64_t n) {
   const int64_t b = (n + 255) / 256;
   return (unsigned)(b < 132 * 16 ? b : 132 * 16);
-}
-
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
-                                  cuuint32_t, void*, const cuuint64_t*,
-                                  const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up through the CUDA runtime (no -lcuda)
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q);
-#endif
-    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(f);
-  }
-  return fn;
-}
-
-// A dense bf16 tensor (dims innermost first) under the 128-byte swizzle,
-// zero fill outside it. Returns 0, or -(CUresult) (-1000: no entry point).
-int encode(CUtensorMap* map, const void* ptr, int rank,
-           const cuuint64_t* dims, const cuuint32_t* box) {
-  const EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return -1000;
-  cuuint64_t strides[4];
-  cuuint64_t st = dims[0] * sizeof(bf16);
-  for (int i = 1; i < rank; ++i) {
-    strides[i - 1] = st;
-    st *= dims[i];
-  }
-  const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                        (cuuint32_t)rank, const_cast<void*>(ptr), dims,
-                        strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : -(int)r;
 }
 
 // The GEMM over act (B, H, W, ca) bf16 per K-source (k_src maps back to

@@ -105,14 +105,18 @@ _SIGNATURES = {
     "robseg_apgd_linf_step": [_P] * 6 + [_I64, _I64, _F, _F, _F, _P],
     "robseg_confusion": [_P, _P, _P, _I64, _I64, _I, _I64, _I, _P],
     "robseg_convnext_block_supported": [_I],
-    "robseg_convnext_block_fwd": [_P] * 12 + [_I] * 4 + [_P],
-    "robseg_convnext_block_dx": [_P] * 15 + [_I] * 4 + [_P],
+    "robseg_convnext_block_scratch": [_I] * 5,
+    "robseg_convnext_block_fwd": [_P] * 12 + [_I] * 5 + [_P],
+    "robseg_convnext_block_dx": [_P] * 12 + [_I] * 5 + [_P],
     "robseg_fpn_fwd": [_P] * 4 + [_I] + [_P] * 5 + [_I] * 7 + [_P],
     "robseg_fpn_dx": [_P] * 9 + [_I] * 8 + [_P],
     "robseg_convnext_mlp_supported": [_I],
     "robseg_convnext_mlp_fwd": [_P] * 10 + [_I64, _I, _I, _P],
     "robseg_convnext_mlp_dx": [_P] * 10 + [_I64, _I, _I, _P],
 }
+
+
+_RESTYPES = {"robseg_convnext_block_scratch": _I64}
 
 
 def library() -> ctypes.CDLL:
@@ -124,7 +128,7 @@ def library() -> ctypes.CDLL:
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+                fn.restype = _RESTYPES.get(name, ctypes.c_int)
             _lib = lib
     return _lib
 

@@ -11,8 +11,17 @@ both JAX entry points, ``convnext_block_fused`` (stages 0-1) and
 ``x`` is channels-last ``(B, H, W, C)`` float32, as the JAX kernels take it.
 The parameters come in the layout of the reference ``state_dict``:
 ``dw (C, 1, 7, 7)``, ``w1 (4C, C)``, ``w2 (C, 4C)``, vectors ``(C,)`` or
-``(4C,)``. The CUDA wrapper converts them once per call into what the
-kernel reads: depthwise taps ``(49, C)`` f32 and bf16 matmul panels.
+``(4C,)``. The CUDA entry points pack them once per call into what the
+kernels read (depthwise taps ``(49, C)`` f32; bf16 K-major panels ``W1``,
+``W2``, and for the backward ``W2^T`` and ``W1^T``) in the one scratch
+buffer the wrapper allocates.
+
+The MLP runs in one of two forms (``fused``): at ``C <= FUSED_MAX_C`` one
+kernel keeps the 4C hidden layer on chip, walking ``TILE_M``-token tiles
+and ``HIDDEN_CHUNK``-wide hidden chunks; above it two GEMMs pass the
+hidden layer through device memory in bf16 (``(B*H*W, 4C)`` scratch),
+``TILE_M x TILE_N`` tiles with ``HIDDEN_CHUNK``-deep K-steps. Both round
+where the TPU kernel rounds, so they compute the same function.
 
 The block is differentiable with respect to ``x`` only: parameters are
 attack-time constants and get no gradient (``None``), exactly as the JAX
@@ -48,9 +57,27 @@ def convnext_block_dx_plain(x, dy, dw, dwb, ls, lb, w1, b1, w2, b2, gamma):
     return dx
 
 
-def _kernel_args(x, dw, dwb, ls, lb, w1, b1, w2, gamma, b2=None):
-    """Check the operands and convert the parameters to the kernel's
-    layouts (once per call, not per tile)."""
+# the kernels' tiling (csrc/convnext_block.cu): 128-token tiles, 64-wide
+# hidden chunks and K-steps, 128 x 128 output tiles in the two-GEMM form
+FUSED_MAX_C = 192
+TILE_M, TILE_N, HIDDEN_CHUNK = 128, 128, 64
+
+
+def fused(c: int) -> bool:
+    """Whether width ``c`` runs the fused MLP kernel (hidden layer on
+    chip) or the two GEMMs through a bf16 hidden layer."""
+    return c <= FUSED_MAX_C
+
+
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _operands(x, params, names):
+    """Check the operands (the kernels take the parameters as they are
+    stored, float32, and pack them themselves) and return the library and
+    the parameters, contiguous (the caller keeps them alive over the
+    launch)."""
     if (not x.is_cuda or x.ndim != 4 or x.dtype != torch.float32
             or not x.is_contiguous()):
         raise ValueError("convnext_block: x must be a contiguous float32 "
@@ -61,39 +88,38 @@ def _kernel_args(x, dw, dwb, ls, lb, w1, b1, w2, gamma, b2=None):
     lib = _build.library()
     if not lib.robseg_convnext_block_supported(c):
         raise ValueError(f"convnext_block: no kernel for C={c}")
-    expect = {"dw": (dw, (c, 1, 7, 7)), "dwb": (dwb, (c,)),
-              "ls": (ls, (c,)), "lb": (lb, (c,)), "w1": (w1, (4 * c, c)),
-              "b1": (b1, (4 * c,)), "w2": (w2, (c, 4 * c)),
-              "gamma": (gamma, (c,))}
-    if b2 is not None:
-        expect["b2"] = (b2, (c,))
-    for name, (t, shape) in expect.items():
-        if (t.device != x.device or t.dtype != torch.float32
-                or tuple(t.shape) != shape):
+    shapes = {"dw": (c, 1, 7, 7), "w1": (4 * c, c), "b1": (4 * c,),
+              "w2": (c, 4 * c)}
+    dev = x.get_device()
+    out = []
+    for name, t in zip(names, params):
+        shape = shapes.get(name, (c,))
+        if (t.get_device() != dev or t.dtype != torch.float32
+                or t.shape != shape):
             raise ValueError(
                 f"convnext_block: {name} must be float32 {shape} on "
                 f"{x.device}; got {t.dtype} {tuple(t.shape)} on {t.device}")
-    f32 = lambda t: t.detach().contiguous()                     # noqa: E731
-    return dict(
-        dwt=dw.detach().reshape(c, 49).t().contiguous(),
-        dwb=f32(dwb), ls=f32(ls), lb=f32(lb), b1=f32(b1), gamma=f32(gamma),
-        b2=None if b2 is None else f32(b2),
-        w1=w1.detach().to(torch.bfloat16).contiguous(),
-        w2=w2.detach().to(torch.bfloat16).contiguous())
+        out.append(t if t.is_contiguous() else t.contiguous())
+    return lib, out
+
+
+_FWD_NAMES = ("dw", "dwb", "ls", "lb", "w1", "b1", "w2", "b2", "gamma")
+_DX_NAMES = ("dw", "dwb", "ls", "lb", "w1", "b1", "w2", "gamma")
 
 
 def convnext_block_fwd_cuda(x, dw, dwb, ls, lb, w1, b1, w2, b2, gamma):
-    """Forward kernels (dwconv+LN, then the fused MLP) on a CUDA tensor."""
-    k = _kernel_args(x, dw, dwb, ls, lb, w1, b1, w2, gamma, b2=b2)
+    """Forward kernels (packing, dwconv+LN, then the MLP) on a CUDA
+    tensor."""
+    lib, params = _operands(x, (dw, dwb, ls, lb, w1, b1, w2, b2, gamma),
+                            _FWD_NAMES)
     b, h, w, c = x.shape
-    u = torch.empty((b, h, w, c), dtype=torch.bfloat16, device=x.device)
+    scratch = torch.empty(lib.robseg_convnext_block_scratch(b, h, w, c, 0),
+                          dtype=torch.uint8, device=x.device)
     out = torch.empty_like(x)
-    err = _build.library().robseg_convnext_block_fwd(
-        x.data_ptr(), k["dwt"].data_ptr(), k["dwb"].data_ptr(),
-        k["ls"].data_ptr(), k["lb"].data_ptr(), k["w1"].data_ptr(),
-        k["b1"].data_ptr(), k["w2"].data_ptr(), k["b2"].data_ptr(),
-        k["gamma"].data_ptr(), u.data_ptr(), out.data_ptr(), b, h, w, c,
-        torch.cuda.current_stream(x.device).cuda_stream)
+    err = lib.robseg_convnext_block_fwd(
+        x.data_ptr(), *(t.data_ptr() for t in params), scratch.data_ptr(),
+        out.data_ptr(), b, h, w, c,
+        _sms(x.device), torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "convnext_block_fwd")
     convnext_block_fwd_cuda.launches += 1
     return out
@@ -103,25 +129,22 @@ convnext_block_fwd_cuda.launches = 0
 
 
 def convnext_block_dx_cuda(x, dy, dw, dwb, ls, lb, w1, b1, w2, b2, gamma):
-    """Input-gradient kernels (dwconv+LN recompute, MLP and LN backward,
-    then the flipped 7x7 correlation) on CUDA tensors."""
+    """Input-gradient kernels (packing, dwconv+LN recompute, MLP and LN
+    backward, then the flipped 7x7 correlation) on CUDA tensors."""
     del b2  # the gradient does not depend on it
-    k = _kernel_args(x, dw, dwb, ls, lb, w1, b1, w2, gamma)
+    lib, params = _operands(x, (dw, dwb, ls, lb, w1, b1, w2, gamma),
+                            _DX_NAMES)
     if dy.shape != x.shape or dy.dtype != torch.float32 or dy.device != x.device:
         raise ValueError("convnext_block_dx: dy must match x")
     dy = dy.contiguous()
     b, h, w, c = x.shape
-    u = torch.empty((b, h, w, c), dtype=torch.bfloat16, device=x.device)
-    xhat = torch.empty_like(x)
-    inv = torch.empty((b, h, w), dtype=torch.float32, device=x.device)
-    dyconv = torch.empty_like(x)
+    scratch = torch.empty(lib.robseg_convnext_block_scratch(b, h, w, c, 1),
+                          dtype=torch.uint8, device=x.device)
     dx = torch.empty_like(x)
-    err = _build.library().robseg_convnext_block_dx(
-        x.data_ptr(), dy.data_ptr(), k["dwt"].data_ptr(), k["dwb"].data_ptr(),
-        k["ls"].data_ptr(), k["lb"].data_ptr(), k["w1"].data_ptr(),
-        k["b1"].data_ptr(), k["w2"].data_ptr(), k["gamma"].data_ptr(),
-        u.data_ptr(), xhat.data_ptr(), inv.data_ptr(), dyconv.data_ptr(),
-        dx.data_ptr(), b, h, w, c,
+    err = lib.robseg_convnext_block_dx(
+        x.data_ptr(), dy.data_ptr(), *(t.data_ptr() for t in params),
+        scratch.data_ptr(), dx.data_ptr(),
+        b, h, w, c, _sms(x.device),
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "convnext_block_dx")
     convnext_block_dx_cuda.launches += 1

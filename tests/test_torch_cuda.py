@@ -69,9 +69,16 @@ def rel_max_err(got, want):
     return float((got - want).abs().max() / want.abs().max())
 
 
+# the model's widths and ragged VOC stage sizes; a map smaller than one
+# 128-token tile (15 tokens) and one a token past a tile multiple (129
+# tokens) in each MLP form (fused at C <= 192, two GEMMs above); and the
+# other supported widths 128, 256 and 512
 @pytest.mark.parametrize("shape", [(2, 37, 20, 96), (2, 119, 119, 96),
                                    (2, 60, 60, 192), (2, 30, 30, 384),
-                                   (1, 15, 15, 768), (1, 8, 9, 1024)])
+                                   (1, 15, 15, 768), (1, 8, 9, 1024),
+                                   (1, 3, 5, 96), (1, 3, 43, 96),
+                                   (1, 16, 16, 128), (1, 3, 43, 256),
+                                   (1, 9, 9, 512)])
 def test_block_kernels_match_plain(dev, shape):
     rng = np.random.default_rng(11)
     p = block_params(rng, shape[-1], dev)
