@@ -15,7 +15,8 @@ result line):
      and output tails, and a line naming the tile, the TMA ring and each
      shape's persistent grid), with CUDA-event times of both, the time of
      one PyTorch library call that computes the same function where there
-     is one, and the card's bound for the work;
+     is one (for the MLP tail: its products, one torch.matmul each at the
+     mode's operand precision), and the card's bound for the work;
   3. the full-width UperNet-ConvNeXt-T_CVST (21 classes, seeded random
      weights) on a (2, 3, 512, 512) batch: logits and the input gradient
      of sum(mask-ce-avg) against the same model with every kernel routed
@@ -29,7 +30,8 @@ result line):
      forward and input gradient at batch 16): kernel time by kind and the
      device's idle share;
   4b. the same for the fused-variant path (fused_mlp_mode="residual",
-     fused_head="pallas") for 10 and for 4 iterations;
+     fused_head="pallas") for 10 and for 4 iterations, then its profile
+     as in 4p;
   5. the SEA CLI (``python -m robseg_torch.infer``) on a fixture VOC tree
      in a temporary directory, its JSON checked;
   6. the fused-variant entry point (``python -m robseg_torch.bench_fused
@@ -72,7 +74,9 @@ bf16 ones (:313-318).
 Bounds: the larger of the bytes the function must move (each input read
 once, each output written once) over 3.35 TB/s and its operations over
 the card's peak for their type (989 TFLOP/s for bf16 tensor-core
-products, 67 TFLOP/s for float32 arithmetic), NVIDIA's H100 SXM figures.
+products, 67 TFLOP/s for float32 arithmetic, 494.7 / 3 TFLOP/s for the
+MLP tail's float32-accurate products, three TF32 tensor-core passes),
+NVIDIA's H100 SXM figures.
 """
 
 from __future__ import annotations
@@ -127,7 +131,8 @@ FUSED_PATH = ("fpn_concat_conv_fwd", "fpn_concat_conv_dx",
               "convnext_mlp_fwd", "convnext_mlp_dx")
 FUSED_MODES = ("residual", "recompute", "residual_bf16", "recompute_bf16")
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
+# float32-accurate products on the tensor cores: three TF32 passes
+PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12, "tf32x3": 494.7e12 / 3}
 
 
 def bound(nbytes: float, flops: dict):
@@ -473,19 +478,53 @@ def phase_fpn(dev, results):
     results["fpn_concat_conv_dx"] = dxr
 
 
+def mlp_products(y, dy, p, h, bf16, save_h):
+    """The MLP tail's products as PyTorch computes them, one torch.matmul a
+    product at the mode's operand precision (bf16 operands, or float32
+    with TF32 off): forward u . W1^T and gelu(h) . W2^T; input gradient
+    gms . W2 and dh . W1, and u . W1^T again when h is recomputed.
+    Returns the forward's and the input gradient's lists of thunks."""
+    from robseg_torch.kernels import convnext_mlp as cm
+    ls, lb, w1, b1, w2, b2, g = p
+    c = y.shape[-1]
+    _, _, u = cm._layer_norm(y.reshape(-1, c), ls, lb)
+    hh = h if h is not None else torch.nn.functional.linear(u, w1, b1)
+    a = torch.nn.functional.gelu(hh)
+    gms = (g * dy).reshape(-1, c)
+    dh = torch.randn_like(hh)
+    ops = [u, a, gms, dh, w1, w2]
+    if bf16:
+        ops = [t.to(torch.bfloat16) for t in ops]
+    u, a, gms, dh, w1, w2 = ops
+    fwd = [lambda: torch.matmul(u, w1.t()), lambda: torch.matmul(a, w2.t())]
+    dx = [lambda: torch.matmul(gms, w2), lambda: torch.matmul(dh, w1)]
+    if not save_h:
+        dx.append(lambda: torch.matmul(u, w1.t()))
+    return fwd, dx
+
+
 def phase_mlp(dev, results):
     """MLP tail forward and input gradient, every mode, at the stage
-    shapes the fused-variant path gives it (dim <= 384) and a ragged one.
-    The JSON rows hold the path's own mode, residual, summed over the
-    three stages."""
+    shapes the fused-variant path gives it (dim <= 384) and a ragged one,
+    with each stage's library time (mlp_products) and bound. The JSON rows
+    hold the path's own mode, residual, summed over the three stages, and
+    under "modes" residual and recompute_bf16 (bench_fused's) by stage."""
     from robseg_torch.kernels import convnext_mlp as cm
     rng = np.random.default_rng(3)
     stages = [(BATCH, 128, 128, 96), (BATCH, 64, 64, 192),
               (BATCH, 32, 32, 384)]
-    fwd = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
-           "library_ms": None}
-    dxr = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
-           "library_ms": None}
+    print(f"mlp tail kernels: bf16 operands through the block's MLP kernels "
+          f"(fused at C <= 192, two GEMMs above) behind a LayerNorm pass; "
+          f"float32 operands as two 3xTF32 GEMMs through an f32 h, "
+          f"{cm.TF32_TILE_M}-token tiles x {cm.tf32_tile_n(4 * 96)} (4C) or "
+          f"{cm.tf32_tile_n(96)} / {cm.tf32_tile_n(128)} (C = 96, 192 / "
+          f"128, 256, 384) columns, {cm.TF32_K_STEP}-deep K-steps, TMA + "
+          f"wgmma with A split in registers", flush=True)
+    rows = {}
+    for name in ("fwd", "dx"):
+        rows[name] = {"max_abs_err": 0.0, "modes": {
+            m: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "stages": []}
+            for m in ("residual", "recompute_bf16")}}
     for shape in stages + [(2, 119, 119, 96)]:
         c = shape[-1]
         p = block_params(rng, c, dev)[2:]  # ls, lb, w1, b1, w2, b2, gamma
@@ -531,29 +570,54 @@ def phase_mlp(dev, results):
                      *dargs, h=h, bf16_operands=bf)),
                  cuda_ms(lambda: cm.convnext_mlp_dx_plain(
                      *dargs, h=h_want, bf16_operands=bf))]
+            lib_f, lib_d = mlp_products(y, dy, p, h, bf, save_h)
+            lib = [sum(cuda_ms(f) for f in lib_f),
+                   sum(cuda_ms(f) for f in lib_d)]
             n = y.numel() // c
-            kind = "bf16" if bf else "f32"
+            kind = "bf16" if bf else "tf32x3"
             hb = 16 * n * c if save_h else 0  # h (N, 4C) f32
             fb = (8 * n * c + hb + 32 * c * c, {kind: 16 * n * c * c})
             db = (12 * n * c + hb + 32 * c * c,
                   {kind: (16 if save_h else 24) * n * c * c})
+            bf_, bd = bound(*fb), bound(*db)
             print(f"convnext_mlp {mode} {shape}: fwd kernel {t[0]:.3f} ms, "
-                  f"plain {t[1]:.3f} ms, bound "
-                  f"{bound(*fb)[0]:.4f} ms ({bound(*fb)[1]}) | dx "
-                  f"kernel {t[2]:.3f} ms, plain {t[3]:.3f} ms, bound "
-                  f"{bound(*db)[0]:.4f} ms ({bound(*db)[1]})", flush=True)
-            fwd["max_abs_err"] = max(fwd["max_abs_err"], e_fwd)
-            dxr["max_abs_err"] = max(dxr["max_abs_err"],
-                                     float((dx - dx_want).abs().max()))
-            if mode == "residual" and shape in stages:
-                fwd["ms"] += t[0]
-                fwd["plain_ms"] += t[1]
-                dxr["ms"] += t[2]
-                dxr["plain_ms"] += t[3]
-                add_bound(fwd, *fb)
-                add_bound(dxr, *db)
-    results["convnext_mlp_fwd"] = fwd
-    results["convnext_mlp_dx"] = dxr
+                  f"plain {t[1]:.3f} ms, library {lib[0]:.3f} ms, bound "
+                  f"{bf_[0]:.4f} ms ({bf_[1]}), share {bf_[0] / t[0]:.1%} | "
+                  f"dx kernel {t[2]:.3f} ms, plain {t[3]:.3f} ms, library "
+                  f"{lib[1]:.3f} ms, bound {bd[0]:.4f} ms ({bd[1]}), share "
+                  f"{bd[0] / t[2]:.1%}", flush=True)
+            rows["fwd"]["max_abs_err"] = max(rows["fwd"]["max_abs_err"],
+                                             e_fwd)
+            rows["dx"]["max_abs_err"] = max(
+                rows["dx"]["max_abs_err"],
+                float((dx - dx_want).abs().max()))
+            if shape not in stages or mode not in rows["fwd"]["modes"]:
+                continue
+            for name, tk, tp, tl, bb in (("fwd", t[0], t[1], lib[0], fb),
+                                         ("dx", t[2], t[3], lib[1], db)):
+                row = rows[name]["modes"][mode]
+                row["ms"] += tk
+                row["plain_ms"] += tp
+                row["library_ms"] += tl
+                add_bound(row, *bb)
+                bms, bby = bound(*bb)
+                row["stages"].append({
+                    "shape": list(shape), "ms": tk, "plain_ms": tp,
+                    "library_ms": tl, "bound_ms": bms, "bound_by": bby,
+                    "share": bms / tk})
+    for name in ("fwd", "dx"):
+        for mode, row in rows[name]["modes"].items():
+            row["share"] = row["bound_ms"] / row["ms"]
+            print(f"convnext_mlp {name} {mode}, 3 stages summed: kernel "
+                  f"{row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, "
+                  f"library {row['library_ms']:.3f} ms, bound "
+                  f"{row['bound_ms']:.4f} ms ({row['bound_by']}), roofline "
+                  f"share {row['share']:.1%}", flush=True)
+        res = rows[name]["modes"]["residual"]
+        rows[name].update({k: res[k] for k in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
+    results["convnext_mlp_fwd"] = rows["fwd"]
+    results["convnext_mlp_dx"] = rows["dx"]
 
 
 def build_model(dev):
@@ -740,9 +804,19 @@ def phase_apgd(dev, logits_fn, n_iter=20, label="main path"):
           f"GiB, final mean acc {float(res.acc.mean()):.4f}", flush=True)
 
 
-def kernel_kind(name: str) -> str:
-    """The kind of a profiled kernel, for the main path's time account."""
+def kernel_kind(name: str, tail: bool = False) -> str:
+    """The kind of a profiled kernel, for a path's time account. On the
+    fused-variant path (``tail``) no block kernel runs, so the MLP
+    kernels, packing and LayerNorm backward the two share are the MLP
+    tail's."""
     part = block_part(name)
+    if "mlp_tf32_kernel" in name or "ln_rows_kernel" in name or (
+            tail and part != "depthwise"
+            and ("pack_kernel" in name or part != "packing")):
+        return "MLP tail"
+    if any(k in name for k in ("fpn_gemm_kernel", "to_bf16_kernel",
+                               "relu_grad_kernel")):
+        return "FPN concat-conv"
     if part != "packing":
         return f"block {part}"
     low = name.lower()
@@ -760,8 +834,9 @@ def kernel_kind(name: str) -> str:
     return "elementwise, norms, resize, loss"
 
 
-def phase_profile(dev, logits_fn, reps: int = 2):
-    """Where one main-path APGD iteration's device time goes: ``reps``
+def phase_profile(dev, logits_fn, label: str = "main-path",
+                  tail: bool = False, reps: int = 2):
+    """Where one APGD iteration's device time goes on a path: ``reps``
     forward + input-gradient passes of the model at batch 16 (the work of
     one iteration) under torch.profiler, kernel time by kind and the
     device's idle share of the window."""
@@ -792,15 +867,16 @@ def phase_profile(dev, logits_fn, reps: int = 2):
         if us <= 0:
             continue
         ms = us / reps / 1e3
-        kinds[kernel_kind(ev.key)] = kinds.get(kernel_kind(ev.key), 0.0) + ms
+        kind = kernel_kind(ev.key, tail)
+        kinds[kind] = kinds.get(kind, 0.0) + ms
         top.append((ms, short_name(ev.key), ev.count // reps))
     busy = sum(kinds.values())
-    print(f"main-path profile, one forward + input gradient at batch 16: "
+    print(f"{label} profile, one forward + input gradient at batch 16: "
           f"{wall:.1f} ms wall, {busy:.1f} ms of kernels, idle share "
           f"{max(0.0, 1 - busy / wall):.4f}; by kind: " + "; ".join(
               f"{k} {v:.1f} ms ({v / busy:.1%})" for k, v in
               sorted(kinds.items(), key=lambda kv: -kv[1])), flush=True)
-    print("main-path profile, top kernels: " + "; ".join(
+    print(f"{label} profile, top kernels: " + "; ".join(
         f"{n} {ms:.2f} ms x{c}" for ms, n, c in sorted(top, reverse=True)[
             :12]), flush=True)
 
@@ -944,6 +1020,7 @@ def main():
     kernels.reset_launch_counts()
     phase_apgd(dev, fused_fn, n_iter=10, label="fused-variant path")
     fused_counts = kernels.launch_counts()
+    phase_profile(dev, fused_fn, label="fused-variant-path", tail=True)
     del fused_fn
     with tempfile.TemporaryDirectory() as tmp:
         for name, n in phase_cli(tmp).items():
@@ -964,7 +1041,7 @@ def main():
          "replaces": REPLACES[name], "launches": launches[name],
          **{k: results[name][k] for k in ("max_abs_err", "ms", "plain_ms",
                                           "bound_ms", "bound_by",
-                                          "library_ms", "stages")
+                                          "library_ms", "stages", "modes")
             if k in results[name]}}
         for name in REPLACES]}))
     print(json.dumps({"ok": True, "device": {

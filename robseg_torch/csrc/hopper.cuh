@@ -12,7 +12,14 @@
 // - wgmma_ss<N> (N = 64, 128, 256) is d (+)= A (64 x 16, shared) . B
 //   (N x 16, shared)^T; wgmma_rs<N> (N = 96, 128, 192) the same with A in
 //   registers, four bf16 pairs a thread in the layout of a wgmma
-//   accumulator's k16 slice (see fused_consumer in convnext_block.cu).
+//   accumulator's k16 slice (see fused_consumer in convnext_mlp.cuh).
+// - The TF32 kind: a tile is rows of 32 floats (128 bytes) under the same
+//   swizzle, so a k8 step is 32 bytes as a bf16 k16 step is and smem_desc
+//   serves both. wgmma_rs_tf32<N> (N = 96, 128) is d (+)= A (64 x 8) . B
+//   (N x 8)^T with A from registers, four tf32 a thread: warp w, lane l
+//   holds rows 16 w + l / 4 + {0, 8} and columns l % 4 + {0, 4}, a[0..3]
+//   = (r, c), (r + 8, c), (r, c + 4), (r + 8, c + 4). The tensor core
+//   reads the top 19 bits of each operand and ignores the other 13.
 // - Accumulator layout (m64nN, f32): thread t of the warpgroup, warp w =
 //   t / 32, lane l, holds rows 16 w + l / 4 + 8 hh (hh = 0, 1) and columns
 //   8 j + 2 (l % 4) + {0, 1} (j < N / 8) in d[4 j + 2 hh + {0, 1}].
@@ -269,6 +276,52 @@ __device__ __forceinline__ void wgmma_rs<192>(float (&d)[96],
         "r"(scale_d));
 }
 
+// d (+)= A (64 x 8 tf32, registers: four a thread) . B (N x 8 tf32,
+// K-major, shared)^T
+template <int N>
+__device__ void wgmma_rs_tf32(float (&d)[N / 2], const uint32_t (&a)[4],
+                              uint64_t db, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_rs_tf32<96>(float (&d)[48],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %53, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47"
+      "}, {%48, %49, %50, %51}, %52, p, 1, 1;\n\t}"
+      : D8(0), D8(8), D8(16), D8(24), D8(32), D8(40)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_tf32<128>(float (&d)[64],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %69, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n\t}"
+      : D8(0), D8(8), D8(16), D8(24), D8(32), D8(40), D8(48), D8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(scale_d));
+}
+
 #undef D8
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
@@ -297,22 +350,25 @@ EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A dense bf16 tensor (dims innermost first) under the 128-byte swizzle,
-// zero fill outside it. Returns 0, or -(CUresult) (-1000: no entry point).
+// A dense bf16 (or float32) tensor (dims innermost first) under the
+// 128-byte swizzle, zero fill outside it. Returns 0, or -(CUresult)
+// (-1000: no entry point).
 int encode(CUtensorMap* map, const void* ptr, int rank,
-           const cuuint64_t* dims, const cuuint32_t* box) {
+           const cuuint64_t* dims, const cuuint32_t* box,
+           CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return -1000;
   cuuint64_t strides[4];
-  cuuint64_t st = dims[0] * sizeof(__nv_bfloat16);
+  cuuint64_t st =
+      dims[0] * (type == CU_TENSOR_MAP_DATA_TYPE_FLOAT32 ? 4 : 2);
   for (int i = 1; i < rank; ++i) {
     strides[i - 1] = st;
     st *= dims[i];
   }
   const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                        (cuuint32_t)rank, const_cast<void*>(ptr), dims,
-                        strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
+  const CUresult r = fn(map, type, (cuuint32_t)rank, const_cast<void*>(ptr),
+                        dims, strides, box, ones,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

@@ -111,12 +111,14 @@ _SIGNATURES = {
     "robseg_fpn_fwd": [_P] * 4 + [_I] + [_P] * 5 + [_I] * 7 + [_P],
     "robseg_fpn_dx": [_P] * 9 + [_I] * 8 + [_P],
     "robseg_convnext_mlp_supported": [_I],
-    "robseg_convnext_mlp_fwd": [_P] * 10 + [_I64, _I, _I, _P],
-    "robseg_convnext_mlp_dx": [_P] * 10 + [_I64, _I, _I, _P],
+    "robseg_convnext_mlp_scratch": [_I64] + [_I] * 4,
+    "robseg_convnext_mlp_fwd": [_P] * 11 + [_I64, _I, _I, _P],
+    "robseg_convnext_mlp_dx": [_P] * 11 + [_I64, _I, _I, _P],
 }
 
 
-_RESTYPES = {"robseg_convnext_block_scratch": _I64}
+_RESTYPES = {"robseg_convnext_block_scratch": _I64,
+             "robseg_convnext_mlp_scratch": _I64}
 
 
 def library() -> ctypes.CDLL:

@@ -3,7 +3,10 @@ their plain versions, and the autograd Function that joins them.
 
 Port of ``robseg_tpu/kernels/convnext_mlp.py`` (``convnext_mlp_fused``,
 ``_rs``, ``_bf16``, ``_rs_bf16``); the kernels are
-``robseg_torch/csrc/convnext_mlp.cu``.
+``robseg_torch/csrc/convnext_mlp.cu`` (bf16 operands: the block's MLP
+kernels of ``convnext_mlp.cuh`` behind a LayerNorm prologue) and
+``convnext_mlp_f32.cu`` (float32 operands: two 3xTF32 GEMMs through an
+f32 ``h``).
 
     m = gamma * (W2 . GELU(W1 . LN(y) + b1) + b2)
 
@@ -14,10 +17,16 @@ reference ``state_dict``, as the block kernel takes them: ``w1 (4C, C)``,
 
 The four JAX entry points are the four ``MODES``: ``residual`` saves the
 pre-GELU hidden ``h`` (N, 4C) f32 in the forward so the backward does two
-matmuls; ``recompute`` keeps ``h`` off device memory and recomputes it;
-the ``_bf16`` modes round the matmul operands to bf16 where the TPU kernel
-does (``mxu_bf16=True``), the others keep them in float32. The plain
-versions round at the same places and no others.
+matmuls; ``recompute`` saves nothing for the backward and recomputes
+``h`` there; the ``_bf16`` modes round the matmul operands to bf16 where
+the TPU kernel does (``mxu_bf16=True``), the others keep them in float32
+(the kernels: 3xTF32, each operand split into a TF32 ``hi`` rounded to
+nearest and the remainder ``lo``). The plain versions round at the same
+places and no others.
+
+The CUDA entry points pack the float32 parameters themselves, once a
+call, into a scratch buffer the wrapper allocates (its size from
+``robseg_convnext_mlp_scratch``).
 
 Differentiable with respect to ``y`` only: parameters get ``None``, as the
 JAX VJPs give them zeros.
@@ -36,6 +45,19 @@ LN_EPS = 1e-6
 # mode -> (save_h, bf16_operands)
 MODES = {"residual": (True, False), "recompute": (False, False),
          "residual_bf16": (True, True), "recompute_bf16": (False, True)}
+
+
+# the float32 kernels' tiling (csrc/convnext_mlp_f32.cu): 128-token tiles
+# and 32-deep K-steps, each step's three TF32 passes summed apart and then
+# added to the tile's f32 sum; 128-wide output tiles, 96-wide for the
+# C-wide products at C = 96 and 192. The bf16 kernels tile as the block's
+# (kernels/convnext_block.py).
+TF32_TILE_M, TF32_K_STEP = 128, 32
+
+
+def tf32_tile_n(n: int) -> int:
+    """Output-tile width of a 3xTF32 product with ``n`` columns."""
+    return 96 if n % 128 else 128
 
 
 def _op(t: torch.Tensor, bf16: bool) -> torch.Tensor:
@@ -83,9 +105,10 @@ def convnext_mlp_dx_plain(y, gout, ls, lb, w1, b1, w2, gamma, h=None,
     return inv * (dxhat - s1 - xhat * s2)
 
 
-def _kernel_args(y, ls, lb, w1, b1, w2, gamma, bf16_operands, b2=None):
-    """Check the operands and convert the weights to the kernel's operand
-    type (once per call)."""
+def _kernel_args(y, ls, lb, w1, b1, w2, gamma, b2=None):
+    """Check the operands; the kernels take the parameters as they are
+    stored, float32, and pack them themselves. Returns the library and the
+    parameters, contiguous (the caller keeps them alive over the launch)."""
     if (not y.is_cuda or y.dtype != torch.float32 or not y.is_contiguous()):
         raise ValueError("convnext_mlp: y must be a contiguous float32 "
                          f"(..., C) CUDA tensor; got {y.dtype} "
@@ -100,35 +123,39 @@ def _kernel_args(y, ls, lb, w1, b1, w2, gamma, bf16_operands, b2=None):
               "gamma": (gamma, (c,))}
     if b2 is not None:
         expect["b2"] = (b2, (c,))
+    out = {}
     for name, (t, shape) in expect.items():
         if (t.device != y.device or t.dtype != torch.float32
                 or tuple(t.shape) != shape):
             raise ValueError(
                 f"convnext_mlp: {name} must be float32 {shape} on "
                 f"{y.device}; got {t.dtype} {tuple(t.shape)} on {t.device}")
-    vec = lambda t: t.detach().contiguous()                     # noqa: E731
-    wt = torch.bfloat16 if bf16_operands else torch.float32
-    return dict(ls=vec(ls), lb=vec(lb), b1=vec(b1), gamma=vec(gamma),
-                b2=None if b2 is None else vec(b2),
-                w1=w1.detach().to(wt).contiguous(),
-                w2=w2.detach().to(wt).contiguous())
+        out[name] = t if t.is_contiguous() else t.contiguous()
+    return lib, out
+
+
+def _scratch(lib, y, n, c, with_h, bf16_operands, backward):
+    return torch.empty(lib.robseg_convnext_mlp_scratch(
+        n, c, int(with_h), int(bf16_operands), int(backward)),
+        dtype=torch.uint8, device=y.device)
 
 
 def convnext_mlp_fwd_cuda(y, ls, lb, w1, b1, w2, b2, gamma, save_h=False,
                           bf16_operands=False):
-    """Forward kernel on CUDA tensors; returns ``(m, h or None)``."""
-    k = _kernel_args(y, ls, lb, w1, b1, w2, gamma, bf16_operands, b2=b2)
+    """Forward kernels on CUDA tensors; returns ``(m, h or None)``."""
+    lib, k = _kernel_args(y, ls, lb, w1, b1, w2, gamma, b2=b2)
     c = y.shape[-1]
     n = y.numel() // c
     out = torch.empty_like(y)
     h = (torch.empty((n, 4 * c), dtype=torch.float32, device=y.device)
          if save_h else None)
-    err = _build.library().robseg_convnext_mlp_fwd(
+    scratch = _scratch(lib, y, n, c, save_h, bf16_operands, False)
+    err = lib.robseg_convnext_mlp_fwd(
         y.data_ptr(), k["ls"].data_ptr(), k["lb"].data_ptr(),
         k["w1"].data_ptr(), k["b1"].data_ptr(), k["w2"].data_ptr(),
-        k["b2"].data_ptr(), k["gamma"].data_ptr(), out.data_ptr(),
-        None if h is None else h.data_ptr(), n, c, int(bf16_operands),
-        torch.cuda.current_stream(y.device).cuda_stream)
+        k["b2"].data_ptr(), k["gamma"].data_ptr(), scratch.data_ptr(),
+        out.data_ptr(), None if h is None else h.data_ptr(), n, c,
+        int(bf16_operands), torch.cuda.current_stream(y.device).cuda_stream)
     _build.check(err, "convnext_mlp_fwd")
     convnext_mlp_fwd_cuda.launches += 1
     return out, h
@@ -139,9 +166,9 @@ convnext_mlp_fwd_cuda.launches = 0
 
 def convnext_mlp_dx_cuda(y, gout, ls, lb, w1, b1, w2, gamma, h=None,
                          bf16_operands=False):
-    """Input-gradient kernel on CUDA tensors (``h``: the forward's saved
+    """Input-gradient kernels on CUDA tensors (``h``: the forward's saved
     hidden, or ``None`` to recompute it)."""
-    k = _kernel_args(y, ls, lb, w1, b1, w2, gamma, bf16_operands)
+    lib, k = _kernel_args(y, ls, lb, w1, b1, w2, gamma)
     c = y.shape[-1]
     n = y.numel() // c
     if (gout.shape != y.shape or gout.dtype != torch.float32
@@ -154,11 +181,12 @@ def convnext_mlp_dx_cuda(y, gout, ls, lb, w1, b1, w2, gamma, h=None,
                          f"({n}, {4 * c}) tensor on {y.device}")
     gout = gout.contiguous()
     dx = torch.empty_like(y)
-    err = _build.library().robseg_convnext_mlp_dx(
+    scratch = _scratch(lib, y, n, c, h is not None, bf16_operands, True)
+    err = lib.robseg_convnext_mlp_dx(
         y.data_ptr(), None if h is None else h.data_ptr(), gout.data_ptr(),
         k["ls"].data_ptr(), k["lb"].data_ptr(), k["w1"].data_ptr(),
         k["b1"].data_ptr(), k["w2"].data_ptr(), k["gamma"].data_ptr(),
-        dx.data_ptr(), n, c, int(bf16_operands),
+        scratch.data_ptr(), dx.data_ptr(), n, c, int(bf16_operands),
         torch.cuda.current_stream(y.device).cuda_stream)
     _build.check(err, "convnext_mlp_dx")
     convnext_mlp_dx_cuda.launches += 1

@@ -182,9 +182,12 @@ def mlp_params(rng, c, device):
 
 
 @pytest.mark.parametrize("mode", list(cm.MODES))
+# every width; ragged token counts: 722, 225, 99 and 273 (2 x 128 + 17)
+# tokens, 129 (a 128-token tile and one row)
 @pytest.mark.parametrize("shape", [(2, 19, 19, 96), (1, 16, 16, 128),
-                                   (1, 15, 15, 192), (1, 8, 8, 256),
-                                   (1, 9, 11, 384)])
+                                   (1, 129, 1, 128), (1, 15, 15, 192),
+                                   (1, 8, 8, 256), (1, 9, 11, 384),
+                                   (3, 7, 13, 384)])
 def test_mlp_kernels_match_plain(dev, mode, shape):
     save_h, bf16 = cm.MODES[mode]
     rng = np.random.default_rng(5)
