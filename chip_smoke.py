@@ -1,13 +1,23 @@
-"""Smoke run of robseg_torch on one NVIDIA GPU: the SEA main path, and the
-fused-variant attack path (MLP-tail and FPN concat-conv kernels).
+"""Smoke run of robseg_torch on one NVIDIA GPU: the SEA main path, the
+fused-variant attack path (MLP-tail and FPN concat-conv kernels), and the
+``--precision bf16`` path (the bf16 I/O forms of the block and FPN
+kernels).
 
     python3 chip_smoke.py
+
+Numerics: the paths run as a user runs them, under the CLI's
+``set_numerics`` (TF32 in cuBLAS and cuDNN outside the kernels, the
+reference's default numerics class). Every phase that holds a kernel
+against its plain version, or a model against its plain-routed self,
+runs inside ``strict_float32()``: TF32 off, so the plain versions'
+products are float32 and the tolerances below mean what they say.
 
 Phases (any failure raises, so the process exits non-zero and prints no
 result line):
   1. build the CUDA kernels from robseg_torch/csrc (one nvcc per source,
      sm_90a);
-  2. each kernel against its plain PyTorch version at the shapes its path
+  2. (TF32 off) each kernel against its plain PyTorch version at the
+     shapes its path
      gives it (batch 16, 512^2; plus a ragged 119^2 case; for the block
      kernels also each kernel's own time per stage from torch.profiler and
      the stage's roofline share; for the FPN
@@ -17,12 +27,21 @@ result line):
      one PyTorch library call that computes the same function where there
      is one (for the MLP tail: its products, one torch.matmul each at the
      mode's operand precision), and the card's bound for the work;
-  3. the full-width UperNet-ConvNeXt-T_CVST (21 classes, seeded random
-     weights) on a (2, 3, 512, 512) batch: logits and the input gradient
-     of sum(mask-ce-avg) against the same model with every kernel routed
-     to its plain version;
-  3b. the same for the fused-variant model, fused_head="pallas" with each
-     of the four MLP-tail modes, and its gap to the float32 unfused model;
+  2b. (TF32 off) the bf16 I/O forms of the block pair (the four stages and
+     2 x 119 x 119 x 96) and the FPN pair (4 x (16, 128, 128, 512)): each
+     bit for bit equal to its float32 form on the upcast inputs with the
+     result rounded once to bf16, and held against its plain version on
+     the same bf16 inputs, with times, bounds (bytes at 2 bytes an
+     element) and, for the FPN, one bf16 cuDNN call;
+  3. (TF32 off) the full-width UperNet-ConvNeXt-T_CVST (21 classes,
+     seeded random weights) on a (2, 3, 512, 512) batch: logits and the
+     input gradient of sum(mask-ce-avg) against the same model with every
+     kernel routed to its plain version;
+  3b. (TF32 off) the same for the fused-variant model, fused_head="pallas"
+     with each of the four MLP-tail modes, and its gap to the float32
+     unfused model;
+  3c. (TF32 off) the same for the bf16 main-path model
+     (``ModelBundle(..., "bf16")``), float32 logits;
   4. APGD on the main path at batch 16, 512^2 (mask-ce-avg, tracking
      ce-avg, random start) for 20 and for 4 iterations: whole-run and
      marginal step*imgs/s and peak memory;
@@ -32,17 +51,33 @@ result line):
   4b. the same for the fused-variant path (fused_mlp_mode="residual",
      fused_head="pallas") for 10 and for 4 iterations, then its profile
      as in 4p;
+  4c. the same as 4 and 4p for the bf16 main path;
   5. the SEA CLI (``python -m robseg_torch.infer``) on a fixture VOC tree
-     in a temporary directory, its JSON checked;
+     in a temporary directory, its JSON checked, with ``--precision
+     default`` and with ``--precision bf16``;
   6. the fused-variant entry point (``python -m robseg_torch.bench_fused
-     --modes rs,recompute_bf16,head --batch 4 --n_iter 3``), its JSON
-     checked;
+     --modes rs,recompute_bf16,head --batch 4 --n_iter 3``), and with
+     ``--bf16 --modes head,rs``, its JSON checked;
   7. proof that each path launched its kernels: the main path (phases
-     4-5) the block, APGD-step and confusion kernels, the fused-variant
-     path (phases 4b and 6) the MLP-tail and FPN kernels, each counted
-     from zero just before its path runs.
+     4 and 5) the block, APGD-step and confusion kernels, the
+     fused-variant path (phases 4b and 6) the MLP-tail and FPN kernels,
+     the bf16 path (phases 4c, 5 with bf16 and 6 with --bf16) the bf16
+     forms of the block and FPN kernels, each counted from zero just
+     before its path runs;
+  8. the attacked-metric probe of tools/bench_bf16.py: apgd_largereps
+     (mask-ce-avg, early stop, PROBE_ITERS iterations) on one fixed batch
+     of 8 fixture VOC images at 512^2, eps 4/255 and 8/255 (and 0.5/255,
+     below where a random-init model falls to ~0 accuracy), under strict
+     float32 (TF32 off), the default numerics and bf16; the default model
+     scores every mode's adversarial examples; prints the aAcc and mIoU
+     deltas of bf16 against default and of default against strict.
 Then one JSON line of per-kernel results, and the last line
 ``{"ok": true, "device": {...}}``.
+
+The torch.profiler splits (per kernel, per kind of work) only divide time
+that CUDA events measure: a profiler window with no device time in it is
+taken again, and a split that stays empty is printed as not measured
+rather than failing the run.
 
 Tolerances. Block forward atol = rtol = 2e-2 and block input gradient max
 error <= 2e-2 of its largest entry (bf16 matmul operands against the
@@ -58,7 +93,12 @@ float32 plain version the JAX package's bf16 bounds, FPN forward atol =
 rtol = 5e-2 (tests/test_kernels.py:394-395), MLP forward atol = rtol =
 2e-2 (:294-295), MLP gradient atol = rtol = 5e-2 (:235-236). Float32-
 operand MLP tail (3xTF32) against the float32 plain version: forward atol
-2e-5, gradient atol 5e-4 / rtol 1e-3 (:81-104, :142-145). Whole model:
+2e-5, gradient atol 5e-4 / rtol 1e-3 (:81-104, :142-145). The bf16 I/O
+forms of the block and FPN kernels against their float32 forms on the
+upcast inputs, rounded once to bf16: bit for bit; against the plain
+version on the same bf16 inputs (float32 math, one rounding at the
+output), the float32 form's bound plus one bf16 step of the entry (rtol
+2^-7). Whole model:
 logits atol = rtol = 2e-2 against the plain-routed model; input gradient
 max error <= 0.15 of its largest entry with cosine >= 0.99 on the main
 path (the JAX package's model-level bound for its block kernel,
@@ -69,7 +109,10 @@ blocks (measured 9.8e-2, cosine 0.99913). The fused-variant model against
 the float32 unfused one under the JAX package's model-level bounds:
 logits atol = rtol = 3e-2 and input gradient <= 0.05 of its largest entry
 with float32 MLP operands (:432-438), <= 0.15 with cosine >= 0.99 with
-bf16 ones (:313-318).
+bf16 ones (:313-318). The bf16 model against its plain-routed self under
+the JAX package's bf16 bounds: logits atol = rtol = 5e-2 (:335-336),
+input gradient <= 0.15 of its largest entry (:313-318), with cosine
+>= 0.99.
 
 Bounds: the larger of the bytes the function must move (each input read
 once, each output written once) over 3.35 TB/s and its operations over
@@ -125,14 +168,37 @@ SOURCES = {
     "convnext_mlp_fwd": "robseg_torch/csrc/convnext_mlp.cu",
     "convnext_mlp_dx": "robseg_torch/csrc/convnext_mlp.cu",
 }
+BF16_FORMS = ("convnext_block_fwd", "convnext_block_dx",
+              "fpn_concat_conv_fwd", "fpn_concat_conv_dx")
+for _k in BF16_FORMS:
+    REPLACES[_k + "_bf16"] = REPLACES[_k] + ", bf16 I/O form"
+    SOURCES[_k + "_bf16"] = SOURCES[_k]
 MAIN_PATH = ("convnext_block_fwd", "convnext_block_dx", "apgd_linf_step",
              "confusion_matrix")
 FUSED_PATH = ("fpn_concat_conv_fwd", "fpn_concat_conv_dx",
               "convnext_mlp_fwd", "convnext_mlp_dx")
+BF16_PATH = tuple(k + "_bf16" for k in BF16_FORMS)
+PROBE_ITERS = 50  # tools/bench_bf16.py's n_iter
 FUSED_MODES = ("residual", "recompute", "residual_bf16", "recompute_bf16")
 HBM_BYTES_PER_S = 3.35e12
 # float32-accurate products on the tensor cores: three TF32 passes
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12, "tf32x3": 494.7e12 / 3}
+
+
+@contextlib.contextmanager
+def strict_float32():
+    """TF32 off in cuBLAS and cuDNN for the phases that hold a kernel
+    against its plain version, or a model against its plain-routed self;
+    the CLI's setting is restored after."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
 
 
 def bound(nbytes: float, flops: dict):
@@ -187,17 +253,10 @@ def rel_max_err(got, want) -> float:
     return float((got - want).abs().max() / want.abs().max())
 
 
-def kernel_split(fn, reps: int = 3) -> list:
-    """Each CUDA kernel's own time in one call of ``fn`` (torch.profiler
-    over ``reps`` calls after a warm-up): [(name, ms per call, launches
-    per call)], longest first."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
+def device_rows(prof, reps: int) -> list:
+    """[(kernel name, device ms per call, launches per call)] of a finished
+    torch.profiler window over ``reps`` calls; empty where it recorded no
+    device time."""
     rows = []
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total", None)
@@ -205,9 +264,37 @@ def kernel_split(fn, reps: int = 3) -> list:
             us = ev.self_cuda_time_total
         if us > 0:
             rows.append((ev.key, us / reps / 1e3, ev.count / reps))
-    if not rows:
-        raise AssertionError("torch.profiler recorded no device time")
-    return sorted(rows, key=lambda r: -r[1])
+    return rows
+
+
+def profiled(fn, reps: int, tries: int = 3):
+    """Run ``fn`` ``reps`` times under torch.profiler; return (device rows,
+    wall ms per call). CUPTI now and then hands back a window with no
+    device time in it: such a window is taken again, up to ``tries`` times,
+    and the rows stay empty if every window was."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / reps
+        rows = device_rows(prof, reps)
+        if rows:
+            break
+        print("torch.profiler window with no device time", flush=True)
+    return rows, wall
+
+
+def kernel_split(fn, reps: int = 3) -> list:
+    """Each CUDA kernel's own time in one call of ``fn`` (torch.profiler
+    over ``reps`` calls after a warm-up): [(name, ms per call, launches
+    per call)], longest first; empty where the profiler recorded no device
+    time (the kernels' times come from CUDA events all the same)."""
+    fn()
+    torch.cuda.synchronize()
+    return sorted(profiled(fn, reps)[0], key=lambda r: -r[1])
 
 
 def short_name(name: str) -> str:
@@ -231,6 +318,23 @@ def block_part(name: str) -> str:
     if "ln_bwd_kernel" in name:
         return "ln_bwd"
     return "packing"
+
+
+def print_split(label: str, fn) -> dict:
+    """Print each CUDA kernel's own time in one call of ``fn`` and return
+    the times summed by block part (``block_part``)."""
+    split = kernel_split(fn)
+    if not split:
+        print(f"{label} split: not measured (torch.profiler recorded no "
+              "device time in 3 windows)", flush=True)
+        return {}
+    parts = {}
+    for kname, ms, _ in split:
+        parts[block_part(kname)] = parts.get(block_part(kname), 0.0) + ms
+    print(f"{label} split: " + "; ".join(
+        f"{short_name(k)} {ms:.4f} ms x{n:g}" for k, ms, n in split),
+        flush=True)
+    return parts
 
 
 def phase_kernels(dev, results):
@@ -288,16 +392,11 @@ def phase_kernels(dev, results):
                  t[0], t[1]),
                 (dxr, "dx", lambda: cb.convnext_block_dx_cuda(x, dy, *p), db,
                  t[2], t[3])):
-            split = kernel_split(fn)
-            parts = {}
-            for kname, ms, _ in split:
-                part = block_part(kname)
-                parts[part] = parts.get(part, 0.0) + ms
+            parts = print_split(f"block {shape} {name}", fn)
             bms, bby = bound(*bb)
-            print(f"block {shape} {name} split: " + "; ".join(
-                f"{short_name(k)} {ms:.4f} ms x{n:g}" for k, ms, n in split)
-                + f" | by part {json.dumps(parts)} | bound {bms:.4f} ms "
-                f"({bby}), roofline share {bms / tk:.1%}", flush=True)
+            print(f"block {shape} {name} by part {json.dumps(parts)} | bound "
+                  f"{bms:.4f} ms ({bby}), roofline share {bms / tk:.1%}",
+                  flush=True)
             row["stages"].append({
                 "shape": list(shape), "ms": tk, "plain_ms": tp,
                 "bound_ms": bms, "bound_by": bby, "share": bms / tk,
@@ -469,6 +568,10 @@ def phase_fpn(dev, results):
                                  max(float((a - b).abs().max())
                                      for a, b in zip(dx, dx_want)))
         if shape[0] == BATCH:
+            print_split(f"fpn_concat_conv {n}x{shape} fwd",
+                        lambda: fc.fpn_concat_conv_fwd_cuda(xs, w, s, t))
+            print_split(f"fpn_concat_conv {n}x{shape} dx",
+                        lambda: fc.fpn_concat_conv_dx_cuda(dy, out, w, s))
             for row, tk, tp, tl, bb in ((fwd, t_k[0], t_k[1], lib[0], fb),
                                         (dxr, t_k[2], t_k[3], lib[1], db)):
                 row.update(ms=tk, plain_ms=tp, library_ms=tl)
@@ -620,6 +723,178 @@ def phase_mlp(dev, results):
     results["convnext_mlp_dx"] = rows["dx"]
 
 
+def bf16_forms(form_bf16, form_f32, *args):
+    """A bf16 I/O kernel form on bf16 operands, and its float32 form on the
+    same values upcast with the result rounded once to bf16 (each a
+    tensor, or a tuple of them)."""
+    def up(a):
+        if isinstance(a, (list, tuple)):
+            return [up(t) for t in a]
+        return a.float() if a.dtype == torch.bfloat16 else a
+
+    def down(r):
+        return tuple(down(t) for t in r) if isinstance(r, tuple) else \
+            r.to(torch.bfloat16)
+    return form_bf16(*args), down(form_f32(*up(list(args))))
+
+
+def n_differ(got, want) -> int:
+    """Elements of ``got`` not bit for bit equal to ``want``."""
+    if isinstance(got, tuple):
+        return sum(n_differ(a, b) for a, b in zip(got, want))
+    return int((got.view(torch.int16) != want.view(torch.int16)).sum())
+
+
+def phase_bf16_kernels(dev, results):
+    """The bf16 I/O forms of the block pair (the four stages, and the
+    ragged VOC stage 1) and of the FPN pair (the head's shape): bit for bit
+    their float32 forms on the upcast inputs rounded once, then against
+    the plain versions on the same bf16 inputs, with times and bounds."""
+    import torch.nn.functional as F
+    from robseg_torch.kernels import convnext_block as cb
+    from robseg_torch.kernels import fpn_conv as fc
+    bf16 = torch.bfloat16
+    rng = np.random.default_rng(4)
+    rows = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+                "library_ms": None, "stages": []}
+            for k in ("convnext_block_fwd_bf16", "convnext_block_dx_bf16")}
+    fwd, dxr = rows.values()
+    stages = [(BATCH, 128, 128, 96), (BATCH, 64, 64, 192),
+              (BATCH, 32, 32, 384), (BATCH, 16, 16, 768)]
+    for shape in stages + [(2, 119, 119, 96)]:
+        p = [t.to(bf16) for t in block_params(rng, shape[-1], dev)]
+        x = torch.randn(shape, device=dev).to(bf16)
+        dy = torch.randn(shape, device=dev).to(bf16)
+        out, out32 = bf16_forms(cb.convnext_block_fwd_bf16_cuda,
+                                cb.convnext_block_fwd_cuda, x, *p)
+        dx, dx32 = bf16_forms(cb.convnext_block_dx_bf16_cuda,
+                              cb.convnext_block_dx_cuda, x, dy, *p)
+        want = cb.convnext_block_plain(x, *p).float()
+        dx_want = cb.convnext_block_dx_plain(x, dy, *p).float()
+        torch.cuda.synchronize()
+        diff = (n_differ(out, out32), n_differ(dx, dx32))
+        e_fwd = float((out.float() - want).abs().max())
+        e_dx = rel_max_err(dx.float(), dx_want)
+        ok = (out.dtype == dx.dtype == bf16 and diff == (0, 0)
+              and bool(torch.isclose(out.float(), want, atol=2e-2,
+                                     rtol=2e-2).all()) and e_dx <= 2e-2)
+        t = [cuda_ms(lambda: cb.convnext_block_fwd_bf16_cuda(x, *p)),
+             cuda_ms(lambda: cb.convnext_block_plain(x, *p)),
+             cuda_ms(lambda: cb.convnext_block_dx_bf16_cuda(x, dy, *p)),
+             cuda_ms(lambda: cb.convnext_block_dx_plain(x, dy, *p))]
+        # bf16 x in and out (dx: x, dy in, dx out), the bf16 weights; the
+        # operations of the float32 form
+        n, c = x.numel() // shape[-1], shape[-1]
+        fb = (4 * n * c + 16 * c * c, {"bf16": 16 * n * c * c,
+                                       "f32": 98 * n * c})
+        db = (6 * n * c + 16 * c * c, {"bf16": 24 * n * c * c,
+                                       "f32": 196 * n * c})
+        bf_, bd = bound(*fb), bound(*db)
+        print(f"block bf16 I/O {shape}: elements differing from the float32 "
+              f"kernel on the upcast inputs, rounded once: fwd {diff[0]}, dx "
+              f"{diff[1]} | vs plain: fwd max_abs_err {e_fwd:.3e}, dx "
+              f"rel_max_err {e_dx:.3e} | fwd kernel {t[0]:.3f} ms, plain "
+              f"{t[1]:.3f} ms, bound {bf_[0]:.4f} ms ({bf_[1]}), share "
+              f"{bf_[0] / t[0]:.1%} | dx kernel {t[2]:.3f} ms, plain "
+              f"{t[3]:.3f} ms, bound {bd[0]:.4f} ms ({bd[1]}), share "
+              f"{bd[0] / t[2]:.1%}", flush=True)
+        if not ok:
+            raise AssertionError(f"block bf16 {shape}: differing {diff}, "
+                                 f"fwd {e_fwd}, dx {e_dx}")
+        fwd["max_abs_err"] = max(fwd["max_abs_err"], e_fwd)
+        dxr["max_abs_err"] = max(dxr["max_abs_err"],
+                                 float((dx.float() - dx_want).abs().max()))
+        for row, name, fn, tk, tp, bb in (
+                (fwd, "fwd", lambda: cb.convnext_block_fwd_bf16_cuda(x, *p),
+                 t[0], t[1], fb),
+                (dxr, "dx", lambda: cb.convnext_block_dx_bf16_cuda(x, dy, *p),
+                 t[2], t[3], db)):
+            parts = print_split(f"block bf16 I/O {shape} {name}", fn)
+            bms, bby = bound(*bb)
+            row["stages"].append({"shape": list(shape), "ms": tk,
+                                  "plain_ms": tp, "bound_ms": bms,
+                                  "bound_by": bby, "share": bms / tk,
+                                  "parts_ms": parts})
+            if shape in stages:
+                row["ms"] += tk
+                row["plain_ms"] += tp
+                add_bound(row, *bb)
+        del x, dy, out, out32, dx, dx32, want, dx_want
+    results.update(rows)
+
+    n, shape, co = 4, (BATCH, 128, 128, 512), 512
+    c = shape[-1]
+    xs = [torch.randn(shape, device=dev).to(bf16) for _ in range(n)]
+    w = torch.tensor(rng.normal(size=(n, 3, 3, c, co)) / 70,
+                     device=dev).to(bf16)
+    s = torch.tensor(1 + 0.1 * rng.normal(size=co), dtype=torch.float32,
+                     device=dev)
+    t = torch.tensor(0.1 * rng.normal(size=co), dtype=torch.float32,
+                     device=dev)
+    out, out32 = bf16_forms(fc.fpn_concat_conv_fwd_bf16_cuda,
+                            fc.fpn_concat_conv_fwd_cuda, xs, w, s, t)
+    dy = torch.randn(out.shape, device=dev).to(bf16)
+    dx, dx32 = bf16_forms(fc.fpn_concat_conv_dx_bf16_cuda,
+                          fc.fpn_concat_conv_dx_cuda, dy, out, w, s)
+    torch.cuda.synchronize()
+    diff = (n_differ(out, out32), n_differ(dx, dx32))
+    del out32, dx32
+    want = fc.fpn_concat_conv_fwd_plain(xs, w, s, t).float()
+    dx_want = [d.float() for d in fc.fpn_concat_conv_dx_plain(dy, out, w, s)]
+    torch.cuda.synchronize()
+    # the float32 forms' bounds against plain (max abs 1e-3 forward, 2e-3
+    # of the largest entry for the gradients) plus one bf16 step
+    e_fwd = float((out.float() - want).abs().max())
+    e_dx = max(rel_max_err(a.float(), b) for a, b in zip(dx, dx_want))
+    ok = (out.dtype == bf16 and all(d.dtype == bf16 for d in dx)
+          and diff == (0, 0)
+          and bool(torch.isclose(out.float(), want, atol=1e-3,
+                                 rtol=2 ** -7).all())
+          and all(bool(torch.isclose(a.float(), b, rtol=2 ** -7,
+                                     atol=2e-3 * float(b.abs().max())).all())
+                  for a, b in zip(dx, dx_want)))
+    t_k = [cuda_ms(lambda: fc.fpn_concat_conv_fwd_bf16_cuda(xs, w, s, t)),
+           cuda_ms(lambda: fc.fpn_concat_conv_fwd_plain(xs, w, s, t)),
+           cuda_ms(lambda: fc.fpn_concat_conv_dx_bf16_cuda(dy, out, w, s)),
+           cuda_ms(lambda: fc.fpn_concat_conv_dx_plain(dy, out, w, s))]
+    # the library yardsticks of phase 2: one bf16 cuDNN call
+    xcat = torch.cat(xs, -1).permute(0, 3, 1, 2)
+    wbf = fc._full_weight(w).contiguous(memory_format=torch.channels_last)
+    gbf = dy.permute(0, 3, 1, 2)
+    lib = [cuda_ms(lambda: F.conv2d(xcat, wbf, padding=1)),
+           cuda_ms(lambda: F.conv_transpose2d(gbf, wbf, padding=1))]
+    del xcat
+    m = out.numel() // co
+    flops = {"bf16": 2 * m * co * n * 9 * c}
+    fb = (2 * n * m * c + 2 * m * co + 2 * w.numel(), flops)
+    db = (2 * 2 * m * co + 2 * n * m * c + 2 * w.numel(), flops)
+    bf_, bd = bound(*fb), bound(*db)
+    print(f"fpn_concat_conv bf16 I/O {n}x{shape} Co={co}: elements differing "
+          f"from the float32 kernel on the upcast inputs, rounded once: fwd "
+          f"{diff[0]}, dx {diff[1]} | vs plain: fwd max_abs_err {e_fwd:.3e} "
+          f"(max|out| {float(want.abs().max()):.3e}), dx rel_max_err "
+          f"{e_dx:.3e} | fwd kernel {t_k[0]:.3f} ms, plain {t_k[1]:.3f} ms, "
+          f"library {lib[0]:.3f} ms, bound {bf_[0]:.3f} ms ({bf_[1]}), share "
+          f"{bf_[0] / t_k[0]:.1%} | dx kernel {t_k[2]:.3f} ms, plain "
+          f"{t_k[3]:.3f} ms, library {lib[1]:.3f} ms, bound {bd[0]:.3f} ms "
+          f"({bd[1]}), share {bd[0] / t_k[2]:.1%}", flush=True)
+    if not ok:
+        raise AssertionError(f"fpn bf16: differing {diff}, fwd {e_fwd}, dx "
+                             f"{e_dx}")
+    print_split(f"fpn_concat_conv bf16 I/O {n}x{shape} fwd",
+                lambda: fc.fpn_concat_conv_fwd_bf16_cuda(xs, w, s, t))
+    print_split(f"fpn_concat_conv bf16 I/O {n}x{shape} dx",
+                lambda: fc.fpn_concat_conv_dx_bf16_cuda(dy, out, w, s))
+    for name, tk, tp, tl, bb, err in (
+            ("fpn_concat_conv_fwd_bf16", t_k[0], t_k[1], lib[0], fb, e_fwd),
+            ("fpn_concat_conv_dx_bf16", t_k[2], t_k[3], lib[1], db,
+             max(float((a.float() - b).abs().max())
+                 for a, b in zip(dx, dx_want)))):
+        results[name] = {"max_abs_err": err, "ms": tk, "plain_ms": tp,
+                         "library_ms": tl}
+        add_bound(results[name], *bb)
+
+
 def build_model(dev):
     from robseg_torch.models import ModelBundle, build_model as build
     torch.manual_seed(0)
@@ -628,13 +903,14 @@ def build_model(dev):
     return ModelBundle(module.to(dev))
 
 
-def fused_model(dev, weights, **settings):
-    """The model in other fused settings, with the main path's weights."""
+def fused_model(dev, weights, precision="default", **settings):
+    """The model in other fused settings (or, with no settings, the main
+    path's), with the main path's weights, at ``precision``."""
     from robseg_torch.models import ModelBundle
     from robseg_torch.models.upernet import UperNetForSemanticSegmentation
     module = UperNetForSemanticSegmentation("T_CVST", N_CLS, **settings)
     module.load_state_dict(weights, strict=True)
-    return ModelBundle(module.to(dev)).logits_fn
+    return ModelBundle(module.to(dev), precision).logits_fn
 
 
 @contextlib.contextmanager
@@ -660,7 +936,10 @@ def plain_kernels():
             setattr(mod, name, fn)
 
 
-def phase_model(dev, logits_fn):
+def phase_model(dev, logits_fn, label="model", atol=2e-2):
+    """A model against itself with every kernel routed to its plain
+    version: logits within ``atol`` (and rtol), float32; the input
+    gradient within 0.15 of its largest entry with cosine >= 0.99."""
     from robseg_torch.ops.losses import ATTACK_CRITERIA
     g = torch.Generator(device=dev).manual_seed(1)
     x = torch.rand((2, 3, HW, HW), device=dev, generator=g)
@@ -689,17 +968,19 @@ def phase_model(dev, logits_fn):
     e_g = rel_max_err(gk, gp)
     cos = float(torch.nn.functional.cosine_similarity(
         gk.flatten(), gp.flatten(), dim=0))
-    print(f"model (2,3,512,512): logits max_abs_err {e_l:.3e} (max|logit| "
+    print(f"{label} (2,3,512,512): logits max_abs_err {e_l:.3e} (max|logit| "
           f"{float(lp.abs().max()):.3e}), argmax agreement "
           f"{float((lk.argmax(1) == lp.argmax(1)).float().mean()):.5f}, "
           f"mask-ce-avg pixels {int(pick.sum())}, input-grad rel_max_err "
           f"{e_g:.3e}, cosine {cos:.6f}", flush=True)
-    torch.testing.assert_close(lk, lp, atol=2e-2, rtol=2e-2)
+    if lk.dtype != torch.float32:
+        raise AssertionError(f"{label}: logits are {lk.dtype}")
+    torch.testing.assert_close(lk, lp, atol=atol, rtol=atol)
     # through all 18 blocks the bf16 rounding of each block's matmul
     # operands compounds; the bound is the JAX package's own for a model
     # run through its block kernel (tests/test_kernels.py:313-316)
     if not (math.isfinite(e_g) and e_g <= 0.15 and cos >= 0.99):
-        raise AssertionError(f"model input grad: rel max err {e_g}, "
+        raise AssertionError(f"{label} input grad: rel max err {e_g}, "
                              f"cosine {cos}")
 
 
@@ -840,7 +1121,6 @@ def phase_profile(dev, logits_fn, label: str = "main-path",
     forward + input-gradient passes of the model at batch 16 (the work of
     one iteration) under torch.profiler, kernel time by kind and the
     device's idle share of the window."""
-    from torch.profiler import ProfilerActivity, profile
     from robseg_torch.ops.losses import ATTACK_CRITERIA
     g = torch.Generator(device=dev).manual_seed(3)
     x = torch.rand((BATCH, 3, HW, HW), device=dev, generator=g)
@@ -853,23 +1133,18 @@ def phase_profile(dev, logits_fn, label: str = "main-path",
 
     step()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            step()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / reps
+    rows, wall = profiled(step, reps)
+    if not rows:
+        print(f"{label} profile, one forward + input gradient at batch 16: "
+              f"{wall:.1f} ms wall; kernel time by kind not measured "
+              "(torch.profiler recorded no device time in 3 windows)",
+              flush=True)
+        return
     kinds, top = {}, []
-    for ev in prof.key_averages():
-        us = getattr(ev, "self_device_time_total", None)
-        if us is None:
-            us = ev.self_cuda_time_total
-        if us <= 0:
-            continue
-        ms = us / reps / 1e3
-        kind = kernel_kind(ev.key, tail)
+    for key, ms, count in rows:
+        kind = kernel_kind(key, tail)
         kinds[kind] = kinds.get(kind, 0.0) + ms
-        top.append((ms, short_name(ev.key), ev.count // reps))
+        top.append((ms, short_name(key), round(count)))
     busy = sum(kinds.values())
     print(f"{label} profile, one forward + input gradient at batch 16: "
           f"{wall:.1f} ms wall, {busy:.1f} ms of kernels, idle share "
@@ -881,24 +1156,31 @@ def phase_profile(dev, logits_fn, label: str = "main-path",
             :12]), flush=True)
 
 
-def phase_cli(tmp: str) -> dict:
-    import yaml
+def fixture_voc(tmp: str) -> str:
+    """The 8-image fixture VOC tree of tools/make_fixture_dataset.py."""
     root = os.path.join(tmp, "voc")
-    subprocess.run([sys.executable, os.path.join(
-        REPO, "tools", "make_fixture_dataset.py"), "--root", root,
-        "--n_train", "0", "--n_val", "8"], check=True)
+    if not os.path.isdir(root):
+        subprocess.run([sys.executable, os.path.join(
+            REPO, "tools", "make_fixture_dataset.py"), "--root", root,
+            "--n_train", "0", "--n_val", "8"], check=True)
+    return root
+
+
+def phase_cli(tmp: str, precision: str = "default") -> dict:
+    import yaml
+    root = fixture_voc(tmp)
     with open(os.path.join(REPO, "configs", "rig_voc_demo.yaml")) as f:
         cfg = yaml.safe_load(f)
     cfg["DATASET"]["ROOT"] = root
-    cfg["SAVE_DIR"] = os.path.join(tmp, "out")
-    cfg_path = os.path.join(tmp, "cfg.yaml")
+    cfg["SAVE_DIR"] = os.path.join(tmp, f"out_{precision}")
+    cfg_path = os.path.join(tmp, f"cfg_{precision}.yaml")
     with open(cfg_path, "w") as f:
         yaml.safe_dump(cfg, f)
     t0 = time.time()
     p = subprocess.run([sys.executable, "-m", "robseg_torch.infer", "--cfg",
                         cfg_path, "--eps", "8", "--n_iter", "10",
-                        "--n_batches", "1"], cwd=REPO, capture_output=True,
-                       text=True)
+                        "--n_batches", "1", "--precision", precision],
+                       cwd=REPO, capture_output=True, text=True)
     if p.returncode != 0:
         raise RuntimeError(f"SEA CLI exited {p.returncode}:\n"
                            f"{p.stdout[-4000:]}\n{p.stderr[-4000:]}")
@@ -935,7 +1217,8 @@ def phase_cli(tmp: str) -> dict:
     if m is None:
         raise AssertionError("SEA CLI printed no kernel launch counts")
     counts = json.loads(m.group(1))
-    print(f"SEA CLI (8 VOC fixture images at 473^2, batch 8, n_iter 10) in "
+    print(f"SEA CLI --precision {precision} (8 VOC fixture images at 473^2, "
+          f"batch 8, n_iter 10) in "
           f"{time.time() - t0:.1f} s: clean {res['clean']}, worst_Acc "
           f"{res['worst_Acc']:.4f}, final_miou {res['final_miou']:.4f}, "
           f"loss-wise mIoU {res['loss-wise_miou']}; max Linf pert "
@@ -944,15 +1227,16 @@ def phase_cli(tmp: str) -> dict:
     return counts
 
 
-def phase_bench_fused() -> dict:
+def phase_bench_fused(modes=("rs", "recompute_bf16", "head"),
+                      flags=()) -> dict:
     """The fused-variant entry point as a user runs it; returns its kernel
     launch counts."""
-    modes = ["rs", "recompute_bf16", "head"]
+    modes = list(modes)
     t0 = time.time()
+    args = ["--modes", ",".join(modes), "--batch", "4", "--n_iter", "3",
+            *flags]
     p = subprocess.run([sys.executable, "-m", "robseg_torch.bench_fused",
-                        "--modes", ",".join(modes), "--batch", "4",
-                        "--n_iter", "3"], cwd=REPO, capture_output=True,
-                       text=True)
+                        *args], cwd=REPO, capture_output=True, text=True)
     if p.returncode != 0:
         raise RuntimeError(f"bench_fused exited {p.returncode}:\n"
                            f"{p.stdout[-4000:]}\n{p.stderr[-4000:]}")
@@ -972,10 +1256,65 @@ def phase_bench_fused() -> dict:
     if m is None:
         raise AssertionError("bench_fused printed no kernel launch counts")
     counts = json.loads(m.group(1))
-    print(f"bench_fused (--modes {','.join(modes)} --batch 4 --n_iter 3) "
-          f"in {time.time() - t0:.1f} s: {json.dumps(res)}; launches "
-          f"{counts}", flush=True)
+    print(f"bench_fused ({' '.join(args)}) in {time.time() - t0:.1f} s: "
+          f"{json.dumps(res)}; launches {counts}", flush=True)
     return counts
+
+
+def phase_probe(dev, tmp, fns):
+    """How far the numerics move the attacked metrics (tools/bench_bf16.py's
+    protocol): apgd_largereps with mask-ce-avg (early stop, tracking
+    ce-avg, random start) on one fixed batch of 8 fixture VOC images at
+    512^2, eps 0.5/255, 4/255 and 8/255, for each mode of ``fns`` (name ->
+    (logits function, numerics scope)); the default model, under the
+    default numerics, scores every mode's adversarial examples."""
+    from robseg_torch.attacks.apgd import apgd_largereps
+    from robseg_torch.data import get_segmentation_dataset, simple_eval_loader
+    from robseg_torch.ops.metrics import (confusion_matrix, iou_from_hist,
+                                          pixel_acc_from_hist)
+    ds = get_segmentation_dataset("pascalvoc", root=fixture_voc(tmp),
+                                  split="val", crop_size=HW)
+    xn, yn = next(simple_eval_loader(ds, 8, 1))
+    x = torch.tensor(xn, device=dev)
+    y = torch.tensor(yn, device=dev)
+    score_fn = fns["default"][0]
+
+    def metrics(x_adv):
+        with torch.no_grad():
+            pred = score_fn(x_adv).argmax(1)
+        hist = confusion_matrix(pred, y, num_classes=N_CLS, ignore_label=-1)
+        return (float(pixel_acc_from_hist(hist)[2]),
+                float(iou_from_hist(hist)[1]))
+
+    out = {}
+    t0 = time.time()
+    # 4 and 8 are the protocol's; a random-init model falls to ~0 accuracy
+    # at both, so 0.5 is added, the sub-saturating eps tools/bench_bf16.py
+    # names for weak models
+    for eps in (0.5, 4, 8):
+        for name, (fn, scope) in fns.items():
+            with scope():
+                adv, _, acc = apgd_largereps(
+                    fn, x, y, weights=None, norm="Linf", eps=eps / 255,
+                    n_iter=PROBE_ITERS, loss="mask-ce-avg", early_stop=True,
+                    track_loss="ce-avg", use_rs=True,
+                    generator=torch.Generator(dev).manual_seed(1))
+            if float((adv - x).abs().max()) > eps / 255 + 1e-6:
+                raise AssertionError(f"probe {name}: outside the eps ball")
+            aacc, miou = metrics(adv)
+            out[f"eps{eps:g}_{name}_rob_aAcc"] = aacc
+            out[f"eps{eps:g}_{name}_rob_mIoU"] = miou
+            out[f"eps{eps:g}_{name}_mean_acc"] = float(acc.mean())
+        for a, b in (("bf16", "default"), ("default", "strict")):
+            for k in ("aAcc", "mIoU"):
+                pre = f"eps{eps:g}_"
+                out[f"{pre}{a}_vs_{b}_delta_{k}"] = (
+                    out[f"{pre}{a}_rob_{k}"] - out[f"{pre}{b}_rob_{k}"])
+    if not all(math.isfinite(v) for v in out.values()):
+        raise AssertionError(f"probe: {out}")
+    print(f"attacked-metric probe (apgd_largereps mask-ce-avg, n_iter "
+          f"{PROBE_ITERS}, 8 fixture images at 512^2, random init) in "
+          f"{time.time() - t0:.1f} s: {json.dumps(out)}", flush=True)
 
 
 def main():
@@ -1001,16 +1340,21 @@ def main():
           flush=True)
 
     results = {}
-    phase_kernels(dev, results)
-    phase_fpn(dev, results)
-    phase_mlp(dev, results)
     bundle = build_model(dev)
-    phase_model(dev, bundle.logits_fn)
     weights = bundle.module.state_dict()
-    phase_fused_model(dev, weights)
+    with strict_float32():
+        phase_kernels(dev, results)
+        phase_fpn(dev, results)
+        phase_mlp(dev, results)
+        phase_bf16_kernels(dev, results)
+        phase_model(dev, bundle.logits_fn)
+        phase_fused_model(dev, weights)
+        phase_model(dev, fused_model(dev, weights, "bf16"),
+                    label="bf16 model", atol=5e-2)
 
     # each path counted from zero: the main path (APGD and the SEA CLI),
-    # then the fused-variant path (APGD and its bench entry point)
+    # the fused-variant path (APGD and its bench entry point), the bf16
+    # path (APGD, the SEA CLI and the bench entry point with bf16)
     kernels.reset_launch_counts()
     phase_apgd(dev, bundle.logits_fn)
     main_counts = kernels.launch_counts()
@@ -1022,15 +1366,31 @@ def main():
     fused_counts = kernels.launch_counts()
     phase_profile(dev, fused_fn, label="fused-variant-path", tail=True)
     del fused_fn
+    bf16_fn = fused_model(dev, weights, "bf16")
+    kernels.reset_launch_counts()
+    phase_apgd(dev, bf16_fn, label="bf16 main path")
+    bf16_counts = kernels.launch_counts()
+    phase_profile(dev, bf16_fn, label="bf16 main-path")
     with tempfile.TemporaryDirectory() as tmp:
-        for name, n in phase_cli(tmp).items():
-            main_counts[name] += n
-    for name, n in phase_bench_fused().items():
-        fused_counts[name] += n
+        for precision, counts in (("default", main_counts),
+                                  ("bf16", bf16_counts)):
+            for name, n in phase_cli(tmp, precision).items():
+                counts[name] += n
+        for modes, flags, counts in (
+                (("rs", "recompute_bf16", "head"), (), fused_counts),
+                (("head", "rs"), ("--bf16",), bf16_counts)):
+            for name, n in phase_bench_fused(modes, flags).items():
+                counts[name] += n
+        phase_probe(dev, tmp, {
+            "strict": (bundle.logits_fn, strict_float32),
+            "default": (bundle.logits_fn, contextlib.nullcontext),
+            "bf16": (bf16_fn, contextlib.nullcontext)})
     print(f"main-path launches: {main_counts}", flush=True)
     print(f"fused-variant-path launches: {fused_counts}", flush=True)
+    print(f"bf16-path launches: {bf16_counts}", flush=True)
     launches = {name: (main_counts if name in MAIN_PATH else
-                       fused_counts)[name] for name in REPLACES}
+                       fused_counts if name in FUSED_PATH else
+                       bf16_counts)[name] for name in REPLACES}
     missing = [k for k, n in launches.items() if n <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on their path: "

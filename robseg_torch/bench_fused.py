@@ -15,6 +15,14 @@ concat-conv kernel), ``head_split``, ``block`` (the block kernel),
 kernels ``rs``, ``recompute``, ``rs_bf16``, ``recompute_bf16`` with the
 concat bottleneck.
 
+``--bf16`` runs every mode with bf16 parameters and activations (the
+``--precision bf16`` model, ``ModelBundle(..., "bf16")``): the block and
+FPN kernels in their bf16 I/O forms, the MLP-tail modes on bf16 inputs
+upcast, with float32 after them (JAX's dtype trail). The forward timing
+runs that same bf16 model (the JAX script times it on float32 input).
+Numerics outside the kernels are the CLI's (``infer.set_numerics``): TF32
+in cuBLAS and cuDNN.
+
     python -m robseg_torch.bench_fused [--modes default,rs] [--batch 16]
 
 Runs on the CUDA card (``--device cpu`` for a small run on the CPU). The
@@ -55,15 +63,11 @@ def parse_args(argv=None):
     parser.add_argument("--modes", type=str, default="default,rs")
     parser.add_argument("--skip_backbone", action="store_true")
     parser.add_argument("--bf16", action="store_true",
-                        help="full-bf16 params and activations: not ported "
-                             "yet")
+                        help="full-bf16 params and activations (the "
+                             "--precision bf16 production mode)")
     parser.add_argument("--device", type=str, default="cuda",
                         choices=["cuda", "cpu"])
     args = parser.parse_args(argv)
-    if args.bf16:
-        parser.error("--bf16 (the --precision bf16 mode) is not ported to "
-                     "robseg_torch yet; it is a later slice of the port "
-                     "(ROADMAP.md)")
     bad = [m for m in args.modes.split(",") if m not in MODES]
     if bad:
         parser.error(f"unknown modes {bad}; choose from {sorted(MODES)}")
@@ -81,6 +85,7 @@ def main(argv=None):
     from robseg_torch.models import ModelBundle
     from robseg_torch.models.upernet import UperNetForSemanticSegmentation
 
+    precision = "bf16" if args.bf16 else "default"
     set_numerics()
     dev = torch.device(args.device)
     batch, hw = args.batch, args.hw
@@ -96,7 +101,7 @@ def main(argv=None):
     def make(mode):
         m = UperNetForSemanticSegmentation("T_CVST", N_CLS, **MODES[mode])
         m.load_state_dict(weights, strict=True)
-        return ModelBundle(m.to(dev)).logits_fn
+        return ModelBundle(m.to(dev), precision).logits_fn
 
     def ready():
         if dev.type == "cuda":

@@ -15,6 +15,18 @@
 // sum run in f32. The backward recomputes dwconv and LN from x and saves
 // nothing from the forward, as the TPU kernel does.
 //
+// I/O types, as the TPU kernel's (convnext_block.py:101, out_shape x.dtype
+// at :325, :354, :437, :463): x, dy, out and dx are float32 or bf16 (the
+// --precision bf16 model), out and dx in x's type; the parameters are
+// float32 or bf16, independently. Inside, everything is as above: a bf16
+// value converts to f32 exactly where it is read, the packing upcasts bf16
+// parameter vectors into the scratch, and out / dx round to bf16 once, at
+// the store. So the bf16 form computes bit for bit what the float32 form
+// computes on the upcast inputs, rounded once at the output. The I/O type
+// is a template parameter of the depthwise passes and the forward's
+// epilogues (mlp_fused_kernel<.., IO>, mlp_gemm_kernel<kResidBf16>), so
+// the float32 instantiations are the code they were.
+//
 // Bound on the H100: 16 C^2 bf16 operations per token forward (two
 // matmuls), 24 C^2 backward (three), against 8 (forward) or 12 (backward)
 // bytes per token and channel of f32 activations: at C = 96 the bytes
@@ -149,9 +161,10 @@ __device__ __forceinline__ void dw_patch(const float* halo, const float (&tap)[4
 }
 
 // stage channels [c0, c0 + 32) of the tile's halo, zero outside the image
-template <class T>
+// (4 channels a load: 16 bytes of f32, 8 of bf16)
+template <class T, class IO>
 __device__ __forceinline__ void dw_stage(float* halo,
-                                         const float* __restrict__ src,
+                                         const IO* __restrict__ src,
                                          int64_t b, int y0, int x0, int H,
                                          int W, int C, int c0) {
   for (int i = threadIdx.x; i < T::HH * T::HW * 8; i += kDwThreads) {
@@ -159,23 +172,21 @@ __device__ __forceinline__ void dw_stage(float* halo,
     const int hy = y0 - 3 + px / T::HW, hx = x0 - 3 + px % T::HW;
     float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     if (hy >= 0 && hy < H && hx >= 0 && hx < W)
-      v = __ldg(reinterpret_cast<const float4*>(
-                    src + ((b * H + hy) * (int64_t)W + hx) * C + c0) +
-                q);
+      v = ld4(src + ((b * H + hy) * (int64_t)W + hx) * C + c0 + 4 * q);
     reinterpret_cast<float4*>(halo)[i] = v;
   }
 }
 
 // u = LN(dwconv(x) + dwb) * ls + lb as bf16; for the backward also xhat
 // (f32), inv = 1/sqrt(var + eps) per token and gms = bf16(gamma * dy).
-// Grid (ceil(W / TW), ceil(H / TH), B).
-template <class T>
+// x and dy are IO (f32 or bf16). Grid (ceil(W / TW), ceil(H / TH), B).
+template <class T, class IO>
 __global__ void __launch_bounds__(kDwThreads)
-dwconv_ln_kernel(const float* __restrict__ x, const float* __restrict__ dwt,
+dwconv_ln_kernel(const IO* __restrict__ x, const float* __restrict__ dwt,
                  const float* __restrict__ dwb, const float* __restrict__ ls,
                  const float* __restrict__ lb, bf16* __restrict__ u,
                  float* __restrict__ xhat, float* __restrict__ inv_out,
-                 const float* __restrict__ dy,
+                 const IO* __restrict__ dy,
                  const float* __restrict__ gamma, bf16* __restrict__ gms,
                  int H, int W, int C) {
   extern __shared__ float4 dw_smem[];
@@ -187,7 +198,7 @@ dwconv_ln_kernel(const float* __restrict__ x, const float* __restrict__ dwt,
   const int ry = (warp / T::WC) * T::RH, rx = (warp % T::WC) * T::RW;
   for (int c0 = 0; c0 < C; c0 += 32) {
     __syncthreads();  // the last chunk's halo is read
-    dw_stage<T>(halo, x, b, y0, x0, H, W, C, c0);
+    dw_stage<T, IO>(halo, x, b, y0, x0, H, W, C, c0);
     __syncthreads();
     const int c = c0 + lane;
     float tap[49];
@@ -221,7 +232,8 @@ dwconv_ln_kernel(const float* __restrict__ x, const float* __restrict__ dwt,
       const float xh = (yr[c] - mean) * inv;
       u[tok * C + c] = __float2bfloat16(xh * ls[c] + lb[c]);
       if (xhat) xhat[tok * C + c] = xh;
-      if (gms) gms[tok * C + c] = __float2bfloat16(gamma[c] * dy[tok * C + c]);
+      if (gms)
+        gms[tok * C + c] = __float2bfloat16(gamma[c] * ld1(dy + tok * C + c));
     }
     if (inv_out && lane == 0) inv_out[tok] = inv;
   }
@@ -232,10 +244,13 @@ dwconv_ln_kernel(const float* __restrict__ x, const float* __restrict__ dwt,
 // with its window of kDwTokens + 6 inputs per row in registers. With no
 // LayerNorm to hold a tile together, small blocks keep more loads in
 // flight: the staged tile form of dwconv_ln_kernel measured slower for
-// this pass at every stage on the H100. Grid (ceil(W / kDwTokens), H, B).
+// this pass at every stage on the H100. dy and dx are IO (f32 or bf16;
+// once a token and channel, outside the window loop). Grid (ceil(W /
+// kDwTokens), H, B).
+template <class IO>
 __global__ void __launch_bounds__(kDwRowThreads)
 dwcorr_kernel(const float* __restrict__ dyconv, const float* __restrict__ dwt,
-              const float* __restrict__ dy, float* __restrict__ dx, int H,
+              const IO* __restrict__ dy, IO* __restrict__ dx, int H,
               int W, int C) {
   const int w0 = blockIdx.x * kDwTokens;
   const int h = blockIdx.y;
@@ -268,7 +283,7 @@ dwcorr_kernel(const float* __restrict__ dyconv, const float* __restrict__ dwt,
     for (int t = 0; t < kDwTokens; ++t) {
       if (t < ntok) {
         const int64_t i = (tok0 + t) * C + c;
-        dx[i] = dy[i] + acc[t];
+        st1(dx + i, ld1(dy + i) + acc[t]);
       }
     }
   }
@@ -298,40 +313,44 @@ int dw_launch(K kernel, bool ln, int B, int H, int W, int C,
   return (int)cudaGetLastError();
 }
 
-int dwconv_ln(const float* x, const float* dwt, const float* dwb,
+template <class IO>
+int dwconv_ln(const IO* x, const float* dwt, const float* dwb,
               const float* ls, const float* lb, bf16* u, float* xhat,
-              float* inv, const float* dy, const float* gamma, bf16* gms,
+              float* inv, const IO* dy, const float* gamma, bf16* gms,
               int B, int H, int W, int C, cudaStream_t stream) {
   switch (C) {
-#define X(WD, TH, TW, RH, RW)                                               \
-  case WD:                                                                  \
-    return dw_launch<DwTile<TH, TW, RH, RW>>(                               \
-        dwconv_ln_kernel<DwTile<TH, TW, RH, RW>>, true, B, H, W, C, stream, \
-        x, dwt, dwb, ls, lb, u, xhat, inv, dy, gamma, gms);
+#define X(WD, TH, TW, RH, RW)                                          \
+  case WD:                                                             \
+    return dw_launch<DwTile<TH, TW, RH, RW>>(                          \
+        dwconv_ln_kernel<DwTile<TH, TW, RH, RW>, IO>, true, B, H, W, C, \
+        stream, x, dwt, dwb, ls, lb, u, xhat, inv, dy, gamma, gms);
     ROBSEG_DW_TILES(X)
 #undef X
     default: return -1;
   }
 }
 
-int dwcorr(const float* dyconv, const float* dwt, const float* dy, float* dx,
+template <class IO>
+int dwcorr(const float* dyconv, const float* dwt, const IO* dy, IO* dx,
            int B, int H, int W, int C, cudaStream_t stream) {
   dim3 grid((W + kDwTokens - 1) / kDwTokens, H, B);
-  dwcorr_kernel<<<grid, kDwRowThreads, 0, stream>>>(dyconv, dwt, dy, dx, H,
-                                                    W, C);
+  dwcorr_kernel<IO><<<grid, kDwRowThreads, 0, stream>>>(dyconv, dwt, dy, dx,
+                                                        H, W, C);
   return (int)cudaGetLastError();
 }
 
 
 // The one scratch buffer of a call, carved into 256-byte aligned parts:
 // the packed parameters (taps (49, C) f32; W1 (4C, C), W2 (C, 4C) or W2^T
-// (4C, C), W1^T (C, 4C) bf16), u (n, C) bf16, the hidden layer (n, 4C)
-// bf16 of the two-GEMM form, and for the backward gms (n, C) bf16, xhat
-// (n, C) f32, inv (n) f32, dyconv (n, C) f32. With base null it only
-// counts the bytes.
+// (4C, C), W1^T (C, 4C) bf16; the vectors dwb, ls, lb, b1 (4C), b2, gamma
+// in f32, filled only from bf16 parameters), u (n, C) bf16, the hidden
+// layer (n, 4C) bf16 of the two-GEMM form, and for the backward gms (n,
+// C) bf16, xhat (n, C) f32, inv (n) f32, dyconv (n, C) f32. With base
+// null it only counts the bytes.
 struct Scratch {
   float* dwt;
   bf16 *w1, *w2, *w1t, *u, *hid, *gms;
+  float *dwb, *ls, *lb, *b1, *b2, *gamma;
   float *xhat, *inv, *dyconv;
   size_t bytes;
 };
@@ -349,6 +368,12 @@ Scratch carve(char* base, int64_t n, int C, bool bwd) {
   s.w1 = (bf16*)take(4 * c * c * 2);
   s.w2 = (bf16*)take(4 * c * c * 2);
   if (bwd) s.w1t = (bf16*)take(4 * c * c * 2);
+  s.dwb = (float*)take(c * 4);
+  s.ls = (float*)take(c * 4);
+  s.lb = (float*)take(c * 4);
+  s.b1 = (float*)take(4 * c * 4);
+  s.b2 = (float*)take(c * 4);
+  s.gamma = (float*)take(c * 4);
   s.u = (bf16*)take(n * c * 2);
   if (C > kFusedMaxC) s.hid = (bf16*)take(n * 4 * c * 2);
   if (bwd) {
@@ -359,6 +384,143 @@ Scratch carve(char* base, int64_t n, int C, bool bwd) {
   }
   s.bytes = off;
   return s;
+}
+
+// The parameter vectors the kernels read, f32: the caller's, or (bf16
+// parameters) upcast by the packing launch into the scratch.
+struct Vecs {
+  const float *dwb, *ls, *lb, *b1, *b2, *gamma;
+};
+
+Vecs vectors(PackParams& pk, const Scratch& sc, const void* dwb,
+             const void* ls, const void* lb, const void* b1, const void* b2,
+             const void* gamma, int C, bool p_bf16) {
+  if (!p_bf16)
+    return Vecs{(const float*)dwb, (const float*)ls, (const float*)lb,
+                (const float*)b1,  (const float*)b2, (const float*)gamma};
+  add_job(pk, dwb, sc.dwb, 1, C, kCastF32, true);
+  add_job(pk, ls, sc.ls, 1, C, kCastF32, true);
+  add_job(pk, lb, sc.lb, 1, C, kCastF32, true);
+  add_job(pk, b1, sc.b1, 1, 4 * C, kCastF32, true);
+  if (b2) add_job(pk, b2, sc.b2, 1, C, kCastF32, true);
+  add_job(pk, gamma, sc.gamma, 1, C, kCastF32, true);
+  return Vecs{sc.dwb, sc.ls, sc.lb, sc.b1, sc.b2, sc.gamma};
+}
+
+template <class IO>
+int block_fwd(const IO* x, const void* dw, const void* dwb, const void* ls,
+              const void* lb, const void* w1, const void* b1, const void* w2,
+              const void* b2, const void* gamma, bool p_bf16, void* scratch,
+              IO* out, int B, int H, int W, int C, int sms, cudaStream_t s) {
+  const int64_t n = (int64_t)B * H * W;
+  if (n == 0) return 0;
+  const Scratch sc = carve((char*)scratch, n, C, false);
+  PackParams pk = {};
+  add_job(pk, dw, sc.dwt, C, 49, kTransposeF32, p_bf16);
+  add_job(pk, w1, sc.w1, 4 * C, C, kCastBf16, p_bf16);
+  add_job(pk, w2, sc.w2, C, 4 * C, kCastBf16, p_bf16);
+  const Vecs v = vectors(pk, sc, dwb, ls, lb, b1, b2, gamma, C, p_bf16);
+  int e = pack(pk, s);
+  if (!e)
+    e = dwconv_ln<IO>(x, sc.dwt, v.dwb, v.ls, v.lb, sc.u, nullptr, nullptr,
+                      nullptr, nullptr, nullptr, B, H, W, C, s);
+  if (e) return e;
+  if (C <= kFusedMaxC) {
+    FusedParams p = {};
+    p.b1 = v.b1;
+    p.x = x;
+    p.b2 = v.b2;
+    p.gamma = v.gamma;
+    p.out = out;
+    p.n = n;
+    switch (C) {
+#define X(WD)                                                            \
+  case WD:                                                               \
+    return launch_fused<WD, false, false, IO>(p, sc.u, nullptr, sc.w1,   \
+                                              nullptr, sc.w2, sms, s);
+      ROBSEG_FOR_EACH_FUSED_WIDTH(X)
+#undef X
+      default: return -1;
+    }
+  }
+  GemmParams p = {};
+  p.bias = v.b1;
+  p.out = sc.hid;
+  p.m = n;
+  p.n = 4 * C;
+  e = launch_gemm<kGelu>(p, sc.u, sc.w1, nullptr, nullptr, C, sms, s);
+  if (e) return e;
+  p = GemmParams{};
+  p.bias = v.b2;
+  p.x = x;
+  p.gamma = v.gamma;
+  p.out = out;
+  p.m = n;
+  p.n = C;
+  constexpr int kEpi = std::is_same<IO, bf16>::value ? kResidBf16 : kResid;
+  return launch_gemm<kEpi>(p, sc.hid, sc.w2, nullptr, nullptr, 4 * C, sms,
+                           s);
+}
+
+template <class IO>
+int block_dx(const IO* x, const IO* dy, const void* dw, const void* dwb,
+             const void* ls, const void* lb, const void* w1, const void* b1,
+             const void* w2, const void* gamma, bool p_bf16, void* scratch,
+             IO* dx, int B, int H, int W, int C, int sms, cudaStream_t s) {
+  const int64_t n = (int64_t)B * H * W;
+  if (n == 0) return 0;
+  const Scratch sc = carve((char*)scratch, n, C, true);
+  // taps; W1 (4C, C); W2^T (4C, C) for da = gms . W2; W1^T (C, 4C) for
+  // du = dh . W1
+  PackParams pk = {};
+  add_job(pk, dw, sc.dwt, C, 49, kTransposeF32, p_bf16);
+  add_job(pk, w1, sc.w1, 4 * C, C, kCastBf16, p_bf16);
+  add_job(pk, w2, sc.w2, C, 4 * C, kTransposeBf16, p_bf16);
+  add_job(pk, w1, sc.w1t, 4 * C, C, kTransposeBf16, p_bf16);
+  const Vecs v = vectors(pk, sc, dwb, ls, lb, b1, nullptr, gamma, C, p_bf16);
+  int e = pack(pk, s);
+  if (!e)
+    e = dwconv_ln<IO>(x, sc.dwt, v.dwb, v.ls, v.lb, sc.u, sc.xhat, sc.inv,
+                      dy, v.gamma, sc.gms, B, H, W, C, s);
+  if (e) return e;
+  if (C <= kFusedMaxC) {
+    FusedParams p = {};
+    p.b1 = v.b1;
+    p.xhat = sc.xhat;
+    p.inv = sc.inv;
+    p.ls = v.ls;
+    p.dyconv = sc.dyconv;
+    p.n = n;
+    switch (C) {
+#define X(WD)                                                               \
+  case WD:                                                                  \
+    e = launch_fused<WD, true>(p, sc.u, sc.gms, sc.w1, sc.w2, sc.w1t, sms,  \
+                               s);                                          \
+    break;
+      ROBSEG_FOR_EACH_FUSED_WIDTH(X)
+#undef X
+      default: return -1;
+    }
+    if (e) return e;
+  } else {
+    GemmParams p = {};
+    p.bias = v.b1;
+    p.out = sc.hid;
+    p.m = n;
+    p.n = 4 * C;
+    e = launch_gemm<kDgelu>(p, sc.u, sc.w1, sc.gms, sc.w2, C, sms, s);
+    if (e) return e;
+    p = GemmParams{};
+    p.out = sc.dyconv;
+    p.m = n;
+    p.n = C;
+    e = launch_gemm<kStore>(p, sc.hid, sc.w1t, nullptr, nullptr, 4 * C, sms,
+                            s);
+    if (e) return e;
+    e = ln_bwd(sc.dyconv, sc.xhat, sc.inv, v.ls, n, C, s);
+    if (e) return e;
+  }
+  return dwcorr<IO>(sc.dyconv, sc.dwt, dy, dx, B, H, W, C, s);
 }
 
 }  // namespace
@@ -378,125 +540,39 @@ extern "C" int robseg_convnext_block_supported(int C) {
   }
 }
 
-// Forward. Parameters in the layout of the reference state_dict, f32: dw
-// (C, 1, 7, 7), w1 (4C, C), w2 (C, 4C), vectors (C) or (4C); scratch:
-// robseg_convnext_block_scratch(B, H, W, C, 0) bytes; out: (B, H, W, C)
-// f32; sms: the persistent grid. Returns 0, a CUDA error, or -(CUresult)
-// if a tensor map was refused.
+// Forward. Parameters in the layout of the reference state_dict, f32 or
+// (p_bf16) bf16: dw (C, 1, 7, 7), w1 (4C, C), w2 (C, 4C), vectors (C) or
+// (4C); x and out: (B, H, W, C) f32 or (io_bf16) bf16; scratch:
+// robseg_convnext_block_scratch(B, H, W, C, 0) bytes; sms: the persistent
+// grid. Returns 0, a CUDA error, or -(CUresult) if a tensor map was
+// refused.
 extern "C" int robseg_convnext_block_fwd(
-    const float* x, const float* dw, const float* dwb, const float* ls,
-    const float* lb, const float* w1, const float* b1, const float* w2,
-    const float* b2, const float* gamma, void* scratch, float* out, int B,
-    int H, int W, int C, int sms, void* stream) {
+    const void* x, const void* dw, const void* dwb, const void* ls,
+    const void* lb, const void* w1, const void* b1, const void* w2,
+    const void* b2, const void* gamma, void* scratch, void* out, int B,
+    int H, int W, int C, int io_bf16, int p_bf16, int sms, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const int64_t n = (int64_t)B * H * W;
-  if (n == 0) return 0;
-  const Scratch sc = carve((char*)scratch, n, C, false);
-  PackParams pk = {};
-  add_job(pk, dw, sc.dwt, C, 49, kTransposeF32);
-  add_job(pk, w1, sc.w1, 4 * C, C, kCastBf16);
-  add_job(pk, w2, sc.w2, C, 4 * C, kCastBf16);
-  int e = pack(pk, s);
-  if (!e)
-    e = dwconv_ln(x, sc.dwt, dwb, ls, lb, sc.u, nullptr, nullptr, nullptr,
-                  nullptr, nullptr, B, H, W, C, s);
-  if (e) return e;
-  if (C <= kFusedMaxC) {
-    FusedParams p = {};
-    p.b1 = b1;
-    p.x = x;
-    p.b2 = b2;
-    p.gamma = gamma;
-    p.out = out;
-    p.n = n;
-    switch (C) {
-#define X(WD)                                                                \
-  case WD:                                                                   \
-    return launch_fused<WD, false>(p, sc.u, nullptr, sc.w1, nullptr, sc.w2, \
-                                   sms, s);
-      ROBSEG_FOR_EACH_FUSED_WIDTH(X)
-#undef X
-      default: return -1;
-    }
-  }
-  GemmParams p = {};
-  p.bias = b1;
-  p.out = sc.hid;
-  p.m = n;
-  p.n = 4 * C;
-  e = launch_gemm<kGelu>(p, sc.u, sc.w1, nullptr, nullptr, C, sms, s);
-  if (e) return e;
-  p = GemmParams{};
-  p.bias = b2;
-  p.x = x;
-  p.gamma = gamma;
-  p.out = out;
-  p.m = n;
-  p.n = C;
-  return launch_gemm<kResid>(p, sc.hid, sc.w2, nullptr, nullptr, 4 * C, sms,
-                             s);
+  if (io_bf16)
+    return block_fwd((const bf16*)x, dw, dwb, ls, lb, w1, b1, w2, b2, gamma,
+                     p_bf16 != 0, scratch, (bf16*)out, B, H, W, C, sms, s);
+  return block_fwd((const float*)x, dw, dwb, ls, lb, w1, b1, w2, b2, gamma,
+                   p_bf16 != 0, scratch, (float*)out, B, H, W, C, sms, s);
 }
 
 // Input gradient. Parameters as the forward's (b2 is not needed); dy, dx:
-// (B, H, W, C) f32; scratch: robseg_convnext_block_scratch(B, H, W, C, 1)
-// bytes.
+// (B, H, W, C) in x's type; scratch: robseg_convnext_block_scratch(B, H,
+// W, C, 1) bytes.
 extern "C" int robseg_convnext_block_dx(
-    const float* x, const float* dy, const float* dw, const float* dwb,
-    const float* ls, const float* lb, const float* w1, const float* b1,
-    const float* w2, const float* gamma, void* scratch, float* dx, int B,
-    int H, int W, int C, int sms, void* stream) {
+    const void* x, const void* dy, const void* dw, const void* dwb,
+    const void* ls, const void* lb, const void* w1, const void* b1,
+    const void* w2, const void* gamma, void* scratch, void* dx, int B,
+    int H, int W, int C, int io_bf16, int p_bf16, int sms, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const int64_t n = (int64_t)B * H * W;
-  if (n == 0) return 0;
-  const Scratch sc = carve((char*)scratch, n, C, true);
-  // taps; W1 (4C, C); W2^T (4C, C) for da = gms . W2; W1^T (C, 4C) for
-  // du = dh . W1
-  PackParams pk = {};
-  add_job(pk, dw, sc.dwt, C, 49, kTransposeF32);
-  add_job(pk, w1, sc.w1, 4 * C, C, kCastBf16);
-  add_job(pk, w2, sc.w2, C, 4 * C, kTransposeBf16);
-  add_job(pk, w1, sc.w1t, 4 * C, C, kTransposeBf16);
-  int e = pack(pk, s);
-  if (!e)
-    e = dwconv_ln(x, sc.dwt, dwb, ls, lb, sc.u, sc.xhat, sc.inv, dy, gamma,
-                  sc.gms, B, H, W, C, s);
-  if (e) return e;
-  if (C <= kFusedMaxC) {
-    FusedParams p = {};
-    p.b1 = b1;
-    p.xhat = sc.xhat;
-    p.inv = sc.inv;
-    p.ls = ls;
-    p.dyconv = sc.dyconv;
-    p.n = n;
-    switch (C) {
-#define X(WD)                                                               \
-  case WD:                                                                  \
-    e = launch_fused<WD, true>(p, sc.u, sc.gms, sc.w1, sc.w2, sc.w1t, sms,  \
-                               s);                                          \
-    break;
-      ROBSEG_FOR_EACH_FUSED_WIDTH(X)
-#undef X
-      default: return -1;
-    }
-    if (e) return e;
-  } else {
-    GemmParams p = {};
-    p.bias = b1;
-    p.out = sc.hid;
-    p.m = n;
-    p.n = 4 * C;
-    e = launch_gemm<kDgelu>(p, sc.u, sc.w1, sc.gms, sc.w2, C, sms, s);
-    if (e) return e;
-    p = GemmParams{};
-    p.out = sc.dyconv;
-    p.m = n;
-    p.n = C;
-    e = launch_gemm<kStore>(p, sc.hid, sc.w1t, nullptr, nullptr, 4 * C, sms,
-                            s);
-    if (e) return e;
-    e = ln_bwd(sc.dyconv, sc.xhat, sc.inv, ls, n, C, s);
-    if (e) return e;
-  }
-  return dwcorr(sc.dyconv, sc.dwt, dy, dx, B, H, W, C, s);
+  if (io_bf16)
+    return block_dx((const bf16*)x, (const bf16*)dy, dw, dwb, ls, lb, w1, b1,
+                    w2, gamma, p_bf16 != 0, scratch, (bf16*)dx, B, H, W, C,
+                    sms, s);
+  return block_dx((const float*)x, (const float*)dy, dw, dwb, ls, lb, w1, b1,
+                  w2, gamma, p_bf16 != 0, scratch, (float*)dx, B, H, W, C,
+                  sms, s);
 }

@@ -20,6 +20,10 @@
 //   dwconv_ln_kernel), with bf16 or float32 outputs;
 // - the TF32 split of the weights in the packing (kSplitTf32,
 //   kTransposeSplitTf32).
+// What the block's bf16 I/O form adds (off for the tail): the forward's
+// residual x read and out written as bf16 (mlp_fused_kernel<C, false,
+// false, bf16>, the kResidBf16 epilogue), and packing jobs that read bf16
+// parameters (PackJob::src_bf16, kCastF32 for the parameter vectors).
 
 #pragma once
 
@@ -78,19 +82,21 @@ __device__ __forceinline__ float tf32_hi(float v) {
   return __uint_as_float(r);
 }
 
-// The packing, one launch per call: up to four jobs, each a transpose
+// The packing, one launch per call: up to ten jobs, each a transpose
 // dst (cols, rows) = src (rows, cols)^T through 32 x 32 shared-memory
 // tiles (the depthwise taps (C, 49) -> (49, C) in f32; W2^T and W1^T in
-// bf16 or split TF32) or an elementwise pass over rows * cols floats
-// (W1, W2: cast to bf16, or split). A split job writes hi and then lo,
-// each rows * cols floats. The blocks are dealt to the jobs in order;
-// block (32, 8).
+// bf16 or split TF32) or an elementwise pass over rows * cols elements
+// (W1, W2: cast to bf16, or split; bf16 parameter vectors: cast to f32).
+// A split job writes hi and then lo, each rows * cols floats. The source
+// is float32, or bf16 where src_bf16 (the block's bf16 parameters). The
+// blocks are dealt to the jobs in order; block (32, 8).
 struct PackJob {
-  const float* src;
+  const void* src;
   void* dst;
   int rows, cols;
   int kind;    // one of the enum below
   int blocks;  // 32 x 32 tiles, or 2048-element runs of an elementwise job
+  int src_bf16;
 };
 enum {
   kTransposeF32 = 0,
@@ -98,11 +104,17 @@ enum {
   kCastBf16 = 2,
   kSplitTf32 = 3,
   kTransposeSplitTf32 = 4,
+  kCastF32 = 5,
 };
 struct PackParams {
-  PackJob job[4];
+  PackJob job[10];
   int jobs;
 };
+
+__device__ __forceinline__ float pack_ld(const PackJob& q, int64_t i) {
+  return q.src_bf16 ? ld1(static_cast<const bf16*>(q.src) + i)
+                    : static_cast<const float*>(q.src)[i];
+}
 
 __global__ void __launch_bounds__(256)
     pack_kernel(const __grid_constant__ PackParams p) {
@@ -112,13 +124,18 @@ __global__ void __launch_bounds__(256)
   const PackJob& q = p.job[j];
   const int tid = threadIdx.y * 32 + threadIdx.x;
   const int64_t n = (int64_t)q.rows * q.cols;
-  if (q.kind == kCastBf16 || q.kind == kSplitTf32) {
+  if (q.kind == kCastBf16 || q.kind == kSplitTf32 || q.kind == kCastF32) {
     // 2048 elements a block, 8 a thread
     for (int k = 0; k < 2; ++k) {
       const int64_t i = (int64_t)b * 512 + k * 256 + tid;  // float4 index
       if (4 * i >= n) break;
-      const float4 v = reinterpret_cast<const float4*>(q.src)[i];
-      if (q.kind == kCastBf16) {
+      const float4 v =
+          q.src_bf16 ? make_float4(pack_ld(q, 4 * i), pack_ld(q, 4 * i + 1),
+                                   pack_ld(q, 4 * i + 2), pack_ld(q, 4 * i + 3))
+                     : reinterpret_cast<const float4*>(q.src)[i];
+      if (q.kind == kCastF32) {
+        static_cast<float4*>(q.dst)[i] = v;
+      } else if (q.kind == kCastBf16) {
         __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(q.dst) + 2 * i;
         o[0] = __floats2bfloat162_rn(v.x, v.y);
         o[1] = __floats2bfloat162_rn(v.z, v.w);
@@ -138,7 +155,7 @@ __global__ void __launch_bounds__(256)
   for (int i = threadIdx.y; i < 32; i += 8) {
     const int r = r0 + i, c = c0 + threadIdx.x;
     if (r < q.rows && c < q.cols)
-      tile[i][threadIdx.x] = q.src[(int64_t)r * q.cols + c];
+      tile[i][threadIdx.x] = pack_ld(q, (int64_t)r * q.cols + c);
   }
   __syncthreads();
   for (int i = threadIdx.y; i < 32; i += 8) {
@@ -248,11 +265,12 @@ struct FusedParams {
   CUtensorMap cols;      // (C x 64 hidden) chunks of W2 (forward) or W1^T
                          // (backward): bf16 (C, 4C), box {64, C}
   const float* b1;
-  const float* x;        // forward epilogue: out = x + gamma (acc + b2), or
-                         // gamma (acc + b2) with x null
+  const void* x;         // forward epilogue: out = x + gamma (acc + b2), or
+                         // gamma (acc + b2) with x null; x and out are the
+                         // kernel's IO type (f32, or bf16 for the block)
   const float* b2;
   const float* gamma;
-  float* out;
+  void* out;
   float* h;              // (n, 4C) f32 pre-GELU h + b1: written by the
                          // forward, read by the backward (WITH_H)
   const float* xhat;     // backward epilogue: the LayerNorm backward
@@ -332,7 +350,7 @@ __device__ __forceinline__ void fused_producer(const FusedParams& p,
   }
 }
 
-template <int C, bool BWD, bool WITH_H>
+template <int C, bool BWD, bool WITH_H, class IO>
 __device__ __forceinline__ void fused_consumer(const FusedParams& p,
                                                uint32_t tok, uint32_t ring,
                                                uint32_t bars, int wg) {
@@ -482,10 +500,10 @@ __device__ __forceinline__ void fused_consumer(const FusedParams& p,
               const int64_t o = row * C + col;
               float2 xv = make_float2(0.0f, 0.0f);
               if constexpr (decltype(resid)::value)
-                xv = __ldg(reinterpret_cast<const float2*>(p.x + o));
-              *reinterpret_cast<float2*>(p.out + o) = make_float2(
-                  xv.x + g.x * (acc[4 * jj + 2 * hh] + b.x),
-                  xv.y + g.y * (acc[4 * jj + 2 * hh + 1] + b.y));
+                xv = ld2(static_cast<const IO*>(p.x) + o);
+              st2(static_cast<IO*>(p.out) + o,
+                  make_float2(xv.x + g.x * (acc[4 * jj + 2 * hh] + b.x),
+                              xv.y + g.y * (acc[4 * jj + 2 * hh + 1] + b.y)));
             }
           }
         }
@@ -540,7 +558,7 @@ __device__ __forceinline__ void fused_consumer(const FusedParams& p,
   }
 }
 
-template <int C, bool BWD, bool WITH_H>
+template <int C, bool BWD, bool WITH_H, class IO>
 __global__ void __launch_bounds__(kThreads, 1)
     mlp_fused_kernel(const __grid_constant__ FusedParams p) {
   typedef Fused<C, BWD, WITH_H> F;
@@ -571,7 +589,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       fused_producer<C, BWD, WITH_H>(p, tok, ring, bars);
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
-    fused_consumer<C, BWD, WITH_H>(p, tok, ring, bars, wg);
+    fused_consumer<C, BWD, WITH_H, IO>(p, tok, ring, bars, wg);
   }
 }
 
@@ -585,13 +603,14 @@ enum Epi {
   kDgelu = 2,   // out bf16 = acc2 * gelu'(acc + bias); acc2 = A2 . B2^T
   kStore = 3,   // out f32 = acc
   kDgeluH = 4,  // out bf16 = acc * gelu'(h), h read (m, n) f32
+  kResidBf16 = 5,  // kResid with x and out bf16 (the block's bf16 I/O)
 };
 
 struct GemmParams {
   CUtensorMap a[2];  // bf16 (m, k), box {64, 128}
   CUtensorMap b[2];  // bf16 (n, k), box {64, 128}
   const float* bias;
-  const float* x;
+  const void* x;     // kResid: f32, kResidBf16: bf16, like out
   const float* gamma;
   float* h;          // kGelu: written when not null; kDgeluH: read
   void* out;         // (m, n)
@@ -694,7 +713,7 @@ __device__ __forceinline__ void gemm_consumer(const GemmParams& p,
         float2 bb = make_float2(0.0f, 0.0f), g = make_float2(0.0f, 0.0f);
         if constexpr (EPI != kStore && EPI != kDgeluH)
           bb = __ldg(reinterpret_cast<const float2*>(p.bias + col));
-        if constexpr (EPI == kResid)
+        if constexpr (EPI == kResid || EPI == kResidBf16)
           g = __ldg(reinterpret_cast<const float2*>(p.gamma + col));
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) {
@@ -716,13 +735,14 @@ __device__ __forceinline__ void gemm_consumer(const GemmParams& p,
             reinterpret_cast<uint32_t*>(p.out)[o / 2] =
                 pack_bf16(d2[i] * gelu_grad(d[i] + bb.x),
                           d2[i + 1] * gelu_grad(d[i + 1] + bb.y));
-          } else if constexpr (EPI == kResid) {
+          } else if constexpr (EPI == kResid || EPI == kResidBf16) {
+            typedef std::conditional_t<EPI == kResid, float, bf16> IO;
             float2 xv = make_float2(0.0f, 0.0f);
             if constexpr (decltype(opt)::value)
-              xv = __ldg(reinterpret_cast<const float2*>(p.x + o));
-            *reinterpret_cast<float2*>(static_cast<float*>(p.out) + o) =
+              xv = ld2(static_cast<const IO*>(p.x) + o);
+            st2(static_cast<IO*>(p.out) + o,
                 make_float2(xv.x + g.x * (d[i] + bb.x),
-                            xv.y + g.y * (d[i + 1] + bb.y));
+                            xv.y + g.y * (d[i + 1] + bb.y)));
           } else {
             *reinterpret_cast<float2*>(static_cast<float*>(p.out) + o) =
                 make_float2(d[i], d[i + 1]);
@@ -730,7 +750,8 @@ __device__ __forceinline__ void gemm_consumer(const GemmParams& p,
         }
       }
     };
-    if ((EPI == kResid && p.x) || (EPI == kGelu && p.h))
+    if (((EPI == kResid || EPI == kResidBf16) && p.x) ||
+        (EPI == kGelu && p.h))
       store(std::true_type());
     else
       store(std::false_type());
@@ -793,8 +814,9 @@ int sm_count() {
 }
 
 // The fused MLP; with h (WITH_H) the backward reads neither u nor panel0
-// (W1), which may be null.
-template <int C, bool BWD, bool WITH_H = false>
+// (W1), which may be null. IO: the forward's x and out (the backward
+// writes f32 dyconv whatever the block's I/O).
+template <int C, bool BWD, bool WITH_H = false, class IO = float>
 int launch_fused(FusedParams& p, const void* u, const void* gms,
                  const void* panel0, const void* panel1, const void* cols,
                  int sms, cudaStream_t stream) {
@@ -808,11 +830,11 @@ int launch_fused(FusedParams& p, const void* u, const void* gms,
   if (e) return e;
   p.tiles = (int)((p.n + kTM - 1) / kTM);
   const cudaError_t ce = cudaFuncSetAttribute(
-      mlp_fused_kernel<C, BWD, WITH_H>,
+      mlp_fused_kernel<C, BWD, WITH_H, IO>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)F::kSmem);
   if (ce != cudaSuccess) return (int)ce;
-  mlp_fused_kernel<C, BWD, WITH_H><<<grid_for(p.tiles, sms), kThreads,
-                                     F::kSmem, stream>>>(p);
+  mlp_fused_kernel<C, BWD, WITH_H, IO><<<grid_for(p.tiles, sms), kThreads,
+                                         F::kSmem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -841,11 +863,11 @@ int launch_gemm(GemmParams& p, const void* a, const void* b, const void* a2,
   return (int)cudaGetLastError();
 }
 
-void add_job(PackParams& p, const float* src, void* dst, int rows, int cols,
-             int kind) {
+void add_job(PackParams& p, const void* src, void* dst, int rows, int cols,
+             int kind, bool src_bf16 = false) {
   PackJob& q = p.job[p.jobs++];
-  q = PackJob{src, dst, rows, cols, kind, 0};
-  q.blocks = (kind == kCastBf16 || kind == kSplitTf32)
+  q = PackJob{src, dst, rows, cols, kind, 0, src_bf16 ? 1 : 0};
+  q.blocks = (kind == kCastBf16 || kind == kSplitTf32 || kind == kCastF32)
                  ? (int)(((int64_t)rows * cols + 2047) / 2048)
                  : ((cols + 31) / 32) * ((rows + 31) / 32);
 }

@@ -6,10 +6,12 @@
 // Replaces: robseg_tpu/kernels/fpn_conv.py, fpn_concat_conv:
 //   _fpn_fwd_call (pallas_call :152, _fwd_kernel)
 //   _fpn_bwd_call (pallas_call :178, _bwd_kernel)
-// x_i are the n <= 4 upsampled FPN maps, channels-last (B, H, W, C) f32;
-// w_i the (3, 3, C, Co) slices of the bottleneck weight; s, t the folded
-// eval BatchNorm. The backward gives the input gradients of all sources in
-// one launch:
+// x_i are the n <= 4 upsampled FPN maps, channels-last (B, H, W, C) f32
+// or bf16 (the --precision bf16 model); w_i the (3, 3, C, Co) slices of
+// the bottleneck weight; s, t the folded eval BatchNorm, f32. out and the
+// input gradients are written in the maps' type, as JAX's out_dtype and
+// in_dtypes (fpn_conv.py:138, :165). The backward gives the input
+// gradients of all sources in one launch:
 //   g    = bf16(bf16(dy) * bf16(s)) where out > 0, else 0
 //   dx_i = sum_{ky,kx} g[r - ky + 1, c - kx + 1] . w_i[ky, kx]^T
 // Rounding sits where the TPU kernel puts it (fpn_conv.py:54-60, 93-98,
@@ -22,9 +24,12 @@
 // ms at 3.35 TB/s: compute bound.
 //
 // Design: one implicit GEMM for both directions, M = pixels, N = output
-// channels, K = (source, tap, 64-channel slice). A pre-pass writes each
-// operand map once as bf16 (forward: the n x_i; backward: g, the ReLU mask
-// and the BatchNorm scale folded in). The GEMM is a persistent,
+// channels, K = (source, tap, 64-channel slice). The GEMM reads bf16 maps:
+// f32 maps go through a pre-pass that writes each once as bf16, bf16 maps
+// are read where they lie (one tensor map per source), and the backward's
+// pre-pass writes g (the ReLU mask and the BatchNorm scale folded in).
+// The bf16 form computes bit for bit what the f32 form computes on the
+// upcast maps, rounded once at the store. The GEMM is a persistent,
 // warp-specialised kernel (one block per SM):
 // - Products: `wgmma.mma_async` m64n256k16 (bf16 in, f32 accumulators in
 //   registers). A block computes a 128-pixel x 256-channel tile; two
@@ -41,18 +46,19 @@
 //   that fill is the conv's padding, the ragged image edge, the channel
 //   tail (C not a multiple of 64) and the output-channel tail, so no
 //   thread computes an address or a bound in the main loop. Tiled mode
-//   (not im2col): a 5-D map {C, W, H, B, source} over the bf16 maps and a
-//   3-D map {K, N, 9 * sources} over the weight panels, each (source, tap)
-//   panel an (N, K) matrix with K contiguous.
+//   (not im2col): a 4-D map {C, W, H, B} over each source's bf16 map and
+//   a 3-D map {K, N, 9 * sources} over the weight panels, each (source,
+//   tap) panel an (N, K) matrix with K contiguous.
 // - K-step: 64 channels, four k16 instructions per warpgroup for each
 //   barrier wait, with no block-wide __syncthreads() in the main loop.
 // - Schedule: tiles walk (output slot, image, patch row, patch column,
 //   N tile) with N innermost, statically strided over the blocks, so the
 //   blocks that run together read the same activation box from L2; the
 //   producer loads the next tile's stages while the consumers write this
-//   tile's outputs straight from their accumulator registers (float2
-//   stores, 32 contiguous bytes per row and warp; pixels outside the
-//   image and channels >= n masked).
+//   tile's outputs straight from their accumulator registers (float2 or
+//   bf16x2 stores, 32 or 16 contiguous bytes per row and warp; pixels
+//   outside the image and channels >= n masked). The output type is the
+//   kernel's template parameter.
 // The descriptors are built on the host in robseg_fpn_fwd / robseg_fpn_dx
 // (cuTensorMapEncodeTiled, looked up at run time through the CUDA runtime,
 // so the link needs no -lcuda) and passed as a __grid_constant__
@@ -84,9 +90,9 @@ constexpr uint32_t kStageBytes = kABytes + kBBytes;
 constexpr size_t kSmem = 1024 + kStages * kStageBytes + 16 * kStages;
 
 struct Params {
-  CUtensorMap a;    // bf16 maps {ca, W, H, B, k_src}, 128-byte swizzle
+  CUtensorMap a[4]; // bf16 map {ca, W, H, B} per K-source, 128-byte swizzle
   CUtensorMap b;    // bf16 panels {ca, n, 9 * panels}, 128-byte swizzle
-  float* out[4];    // (B, H, W, n) f32 per output slot
+  void* out[4];     // (B, H, W, n) per output slot, f32 or bf16
   const float* s;   // forward epilogue relu(acc * s + t); null: acc as is
   const float* t;
   int batch, h, w, n;
@@ -117,12 +123,8 @@ __device__ __forceinline__ Tile decode(const Params& p, int t) {
 
 __device__ __forceinline__ void producer(const Params& p, uint32_t base,
                                          uint32_t bars) {
-  asm volatile("prefetch.tensormap [%0];" ::"l"(
-                   reinterpret_cast<uint64_t>(&p.a))
-               : "memory");
-  asm volatile("prefetch.tensormap [%0];" ::"l"(
-                   reinterpret_cast<uint64_t>(&p.b))
-               : "memory");
+  for (int src = 0; src < p.k_src; ++src) prefetch_map(&p.a[src]);
+  prefetch_map(&p.b);
   int it = 0;  // K-steps issued by this block, over all its tiles
   for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
     const Tile tl = decode(p, tile);
@@ -137,7 +139,7 @@ __device__ __forceinline__ void producer(const Params& p, uint32_t base,
           mbar_wait(bars + 8 * (kStages + st), ((it / kStages) & 1) ^ 1);
           mbar_expect_tx(full, kStageBytes);
           const uint32_t a = base + st * kStageBytes;
-          tma_load_5d(a, &p.a, full, c * kBK, x, y, tl.b, src);
+          tma_load_4d(a, &p.a[src], full, c * kBK, x, y, tl.b);
           tma_load_3d(a + kABytes, &p.b, full, c * kBK, tl.n0, panel);
         }
       }
@@ -145,6 +147,7 @@ __device__ __forceinline__ void producer(const Params& p, uint32_t base,
   }
 }
 
+template <class Out>
 __device__ __forceinline__ void consumer(const Params& p, uint32_t base,
                                          uint32_t bars, int wg) {
   const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
@@ -179,7 +182,7 @@ __device__ __forceinline__ void consumer(const Params& p, uint32_t base,
 
     // epilogue: this thread holds rows r and r + 8 of the warpgroup's 64,
     // columns 8j + 2 (lane % 4) + {0, 1} for j < 32
-    float* out = p.out[tl.slot];
+    Out* out = static_cast<Out*>(p.out[tl.slot]);
     int64_t off[2];
     bool ok[2];
 #pragma unroll
@@ -207,13 +210,14 @@ __device__ __forceinline__ void consumer(const Params& p, uint32_t base,
             v.x = fmaxf(v.x * sc.x + sh.x, 0.0f);
             v.y = fmaxf(v.y * sc.y + sh.y, 0.0f);
           }
-          if (ok[hh]) *reinterpret_cast<float2*>(out + off[hh] + col) = v;
+          if (ok[hh]) st2(out + off[hh] + col, v);
         }
       }
     }
   }
 }
 
+template <class Out>
 __global__ void __launch_bounds__(kThreads, 1)
     fpn_gemm_kernel(const __grid_constant__ Params p) {
   extern __shared__ unsigned char smem_raw[];
@@ -239,7 +243,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (threadIdx.x % 128 == 0) producer(p, base, bars);
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
-    consumer(p, base, bars, wg);
+    consumer<Out>(p, base, bars, wg);
   }
 }
 
@@ -257,15 +261,18 @@ __global__ void to_bf16_kernel(const float* __restrict__ x,
 
 // g = bf16(bf16(dy) * bf16(s)) where out > 0, else 0. The product of two
 // bf16 values is exact in f32, so rounding it once is the bf16 multiply.
-__global__ void relu_grad_kernel(const float* __restrict__ dy,
-                                 const float* __restrict__ out,
+// dy and out are IO (f32, or bf16: then bf16(dy) is dy, and out > 0 has
+// the sign of the f32 output it rounds).
+template <class IO>
+__global__ void relu_grad_kernel(const IO* __restrict__ dy,
+                                 const IO* __restrict__ out,
                                  const float* __restrict__ s,
                                  bf16* __restrict__ g, int64_t n, int co) {
   for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < n;
        i += (int64_t)gridDim.x * blockDim.x) {
-    const float d = __bfloat162float(__float2bfloat16(dy[i]));
+    const float d = __bfloat162float(__float2bfloat16(ld1(dy + i)));
     const float sc = __bfloat162float(__float2bfloat16(s[i % co]));
-    g[i] = __float2bfloat16(out[i] > 0.0f ? d * sc : 0.0f);
+    g[i] = __float2bfloat16(ld1(out + i) > 0.0f ? d * sc : 0.0f);
   }
 }
 
@@ -274,22 +281,25 @@ unsigned elementwise_blocks(int64_t n) {
   return (unsigned)(b < 132 * 16 ? b : 132 * 16);
 }
 
-// The GEMM over act (B, H, W, ca) bf16 per K-source (k_src maps back to
-// back) and panels (9 * (k_src + slots - 1), n, ca) bf16, into `slots`
-// outputs (B, H, W, n) f32. box_w (8..128, a power of two) and blocks come
-// from the caller's plan (robseg_torch/kernels/fpn_conv.py::plan).
-int launch_gemm(Params& p, const void* act, const void* panels, int ca,
-                int slots, int box_w, int blocks, cudaStream_t stream) {
+// The GEMM over act[i] (B, H, W, ca) bf16 for each of the k_src
+// K-sources and panels (9 * (k_src + slots - 1), n, ca) bf16, into `slots`
+// outputs (B, H, W, n) of type Out. box_w (8..128, a power of two) and
+// blocks come from the caller's plan
+// (robseg_torch/kernels/fpn_conv.py::plan).
+template <class Out>
+int launch_gemm(Params& p, const void* const* act, const void* panels,
+                int ca, int slots, int box_w, int blocks,
+                cudaStream_t stream) {
   if (box_w < 8 || box_w > kBM || (box_w & (box_w - 1)) || blocks < 1 ||
       p.n % 2)
     return (int)cudaErrorInvalidValue;
   const int box_h = kBM / box_w;
-  const cuuint64_t adims[5] = {(cuuint64_t)ca, (cuuint64_t)p.w,
-                               (cuuint64_t)p.h, (cuuint64_t)p.batch,
-                               (cuuint64_t)p.k_src};
-  const cuuint32_t abox[5] = {kBK, (cuuint32_t)box_w, (cuuint32_t)box_h, 1,
-                              1};
-  int err = encode(&p.a, act, 5, adims, abox);
+  const cuuint64_t adims[4] = {(cuuint64_t)ca, (cuuint64_t)p.w,
+                               (cuuint64_t)p.h, (cuuint64_t)p.batch};
+  const cuuint32_t abox[4] = {kBK, (cuuint32_t)box_w, (cuuint32_t)box_h, 1};
+  int err = 0;
+  for (int i = 0; i < p.k_src && !err; ++i)
+    err = encode(&p.a[i], act[i], 4, adims, abox);
   if (err) return err;
   const cuuint64_t bdims[3] = {(cuuint64_t)ca, (cuuint64_t)p.n,
                                (cuuint64_t)(9 * (p.k_src + slots - 1))};
@@ -307,36 +317,66 @@ int launch_gemm(Params& p, const void* act, const void* panels, int ca,
   p.tiles = (int)tiles;
   p.kc = (ca + kBK - 1) / kBK;
   cudaError_t e = cudaFuncSetAttribute(
-      fpn_gemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fpn_gemm_kernel<Out>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)kSmem);
   if (e != cudaSuccess) return (int)e;
-  fpn_gemm_kernel<<<blocks < p.tiles ? blocks : p.tiles, kThreads, kSmem,
-                    stream>>>(p);
+  fpn_gemm_kernel<Out><<<blocks < p.tiles ? blocks : p.tiles, kThreads, kSmem,
+                         stream>>>(p);
   return (int)cudaGetLastError();
+}
+
+template <class IO>
+int fpn_dx(const IO* dy, const IO* out, const void* wt, const float* s,
+           void* g, void* const* dxs, int n_src, int B, int H, int W, int C,
+           int Co, int box_w, int blocks, cudaStream_t st) {
+  const int64_t m = (int64_t)B * H * W;
+  relu_grad_kernel<IO><<<elementwise_blocks(m * Co), 256, 0, st>>>(
+      dy, out, s, (bf16*)g, m * Co, Co);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  Params p = {};
+  for (int i = 0; i < 4; ++i) p.out[i] = dxs[i];
+  p.s = nullptr;
+  p.t = nullptr;
+  p.batch = B;
+  p.h = H;
+  p.w = W;
+  p.n = C;
+  p.k_src = 1;
+  p.sign = -1;
+  const void* act[1] = {g};
+  return launch_gemm<IO>(p, act, wt, Co, n_src, box_w, blocks, st);
 }
 
 }  // namespace
 
-// Forward. x0..x3: the n_src (1..4) sources (B, H, W, C) f32 (unused ones
-// null); w: the panels (n_src, 3, 3, Co, C) bf16; xb: (n_src, B*H*W, C)
-// bf16 scratch; out: (B, H, W, Co) f32. C and Co must be multiples of 32
-// (TMA strides: multiples of 16 bytes). box_w, blocks: the launch plan.
-// Returns 0, a CUDA error, or -(CUresult) if a tensor map was refused.
-extern "C" int robseg_fpn_fwd(const float* x0, const float* x1,
-                              const float* x2, const float* x3, int n_src,
+// Forward. x0..x3: the n_src (1..4) sources (B, H, W, C), f32 or
+// (io_bf16) bf16 (unused ones null); w: the panels (n_src, 3, 3, Co, C)
+// bf16; xb: (n_src, B*H*W, C) bf16 scratch for f32 sources (null for bf16
+// ones, which the GEMM reads where they lie); out: (B, H, W, Co) in the
+// sources' type. C and Co must be multiples of 32 (TMA strides: multiples
+// of 16 bytes). box_w, blocks: the launch plan. Returns 0, a CUDA error,
+// or -(CUresult) if a tensor map was refused.
+extern "C" int robseg_fpn_fwd(const void* x0, const void* x1,
+                              const void* x2, const void* x3, int n_src,
                               const void* w, const float* s, const float* t,
-                              void* xb, float* out, int B, int H, int W,
-                              int C, int Co, int box_w, int blocks,
-                              void* stream) {
+                              void* xb, void* out, int B, int H, int W,
+                              int C, int Co, int io_bf16, int box_w,
+                              int blocks, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int64_t m = (int64_t)B * H * W;
   if (m == 0) return 0;
-  const float* xs[4] = {x0, x1, x2, x3};
-  for (int i = 0; i < n_src; ++i)
-    to_bf16_kernel<<<elementwise_blocks(m * C / 4), 256, 0, st>>>(
-        xs[i], (bf16*)xb + i * m * C, m * C / 4);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
+  const void* xs[4] = {x0, x1, x2, x3};
+  const void* act[4] = {x0, x1, x2, x3};
+  if (!io_bf16) {
+    for (int i = 0; i < n_src; ++i) {
+      act[i] = (bf16*)xb + i * m * C;
+      to_bf16_kernel<<<elementwise_blocks(m * C / 4), 256, 0, st>>>(
+          (const float*)xs[i], (bf16*)act[i], m * C / 4);
+    }
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
   Params p = {};
   p.out[0] = out;
   p.s = s;
@@ -347,34 +387,25 @@ extern "C" int robseg_fpn_fwd(const float* x0, const float* x1,
   p.n = Co;
   p.k_src = n_src;
   p.sign = 1;
-  return launch_gemm(p, xb, w, C, 1, box_w, blocks, st);
+  return io_bf16 ? launch_gemm<bf16>(p, act, w, C, 1, box_w, blocks, st)
+                 : launch_gemm<float>(p, act, w, C, 1, box_w, blocks, st);
 }
 
-// Input gradients. dy, out: (B, H, W, Co) f32; wt: the panels (n_src, 3,
-// 3, C, Co) bf16, the weight as stored; g: (B*H*W, Co) bf16 scratch;
-// dx0..dx3: (B, H, W, C) f32 per source.
-extern "C" int robseg_fpn_dx(const float* dy, const float* out,
+// Input gradients. dy, out: (B, H, W, Co), f32 or (io_bf16) bf16; wt: the
+// panels (n_src, 3, 3, C, Co) bf16, the weight as stored; g: (B*H*W, Co)
+// bf16 scratch; dx0..dx3: (B, H, W, C) per source, in dy's type.
+extern "C" int robseg_fpn_dx(const void* dy, const void* out,
                              const void* wt, const float* s, void* g,
-                             float* dx0, float* dx1, float* dx2, float* dx3,
+                             void* dx0, void* dx1, void* dx2, void* dx3,
                              int n_src, int B, int H, int W, int C, int Co,
-                             int box_w, int blocks, void* stream) {
+                             int io_bf16, int box_w, int blocks,
+                             void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const int64_t m = (int64_t)B * H * W;
-  if (m == 0) return 0;
-  relu_grad_kernel<<<elementwise_blocks(m * Co), 256, 0, st>>>(
-      dy, out, s, (bf16*)g, m * Co, Co);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  Params p = {};
-  float* dxs[4] = {dx0, dx1, dx2, dx3};
-  for (int i = 0; i < 4; ++i) p.out[i] = dxs[i];
-  p.s = nullptr;
-  p.t = nullptr;
-  p.batch = B;
-  p.h = H;
-  p.w = W;
-  p.n = C;
-  p.k_src = 1;
-  p.sign = -1;
-  return launch_gemm(p, g, wt, Co, n_src, box_w, blocks, st);
+  if ((int64_t)B * H * W == 0) return 0;
+  void* const dxs[4] = {dx0, dx1, dx2, dx3};
+  if (io_bf16)
+    return fpn_dx((const bf16*)dy, (const bf16*)out, wt, s, g, dxs, n_src,
+                  B, H, W, C, Co, box_w, blocks, st);
+  return fpn_dx((const float*)dy, (const float*)out, wt, s, g, dxs, n_src,
+                B, H, W, C, Co, box_w, blocks, st);
 }

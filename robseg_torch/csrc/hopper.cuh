@@ -1,7 +1,7 @@
 // Hopper building blocks shared by the TMA + wgmma kernels (fpn_conv.cu,
-// convnext_block.cu): mbarriers, TMA loads, shared-memory matrix
-// descriptors, warpgroup matrix multiplies, and the host-side encoding of
-// TMA tensor maps. Every helper has internal linkage, so each translation
+// convnext_block.cu): loads and stores of float32 or bf16 activations,
+// mbarriers, TMA loads, shared-memory matrix descriptors, warpgroup matrix
+// multiplies, and the host-side encoding of TMA tensor maps. Every helper has internal linkage, so each translation
 // unit that includes this header gets its own copy.
 //
 // Conventions, as the kernels use them:
@@ -32,6 +32,40 @@
 #include <stdint.h>
 
 namespace {
+
+// Loads and stores of activations that are float32 or bf16 in memory and
+// float32 in registers (the kernels' I/O type): a bf16 value converts
+// exactly; a store rounds to nearest even, as torch's .to(torch.bfloat16)
+// does.
+__device__ __forceinline__ float ld1(const float* p) { return *p; }
+__device__ __forceinline__ float ld1(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+__device__ __forceinline__ void st1(float* p, float v) { *p = v; }
+__device__ __forceinline__ void st1(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16(v);
+}
+__device__ __forceinline__ float2 ld2(const float* p) {
+  return __ldg(reinterpret_cast<const float2*>(p));
+}
+__device__ __forceinline__ float2 ld2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(__ldg(reinterpret_cast<const __nv_bfloat162*>(p)));
+}
+__device__ __forceinline__ void st2(float* p, float2 v) {
+  *reinterpret_cast<float2*>(p) = v;
+}
+__device__ __forceinline__ void st2(__nv_bfloat16* p, float2 v) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v.x, v.y);
+}
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+  const __nv_bfloat162* v = reinterpret_cast<const __nv_bfloat162*>(&u);
+  const float2 a = __bfloat1622float2(v[0]), b = __bfloat1622float2(v[1]);
+  return make_float4(a.x, a.y, b.x, b.y);
+}
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
@@ -66,16 +100,16 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   }
 }
 
-__device__ __forceinline__ void tma_load_5d(uint32_t dst,
+__device__ __forceinline__ void tma_load_4d(uint32_t dst,
                                             const CUtensorMap* map,
                                             uint32_t bar, int c0, int c1,
-                                            int c2, int c3, int c4) {
+                                            int c2, int c3) {
   asm volatile(
-      "cp.async.bulk.tensor.5d.shared::cluster.global.tile"
-      ".mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4, %5, %6}], "
-      "[%7];" ::"r"(dst),
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];" ::
+          "r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(c3), "r"(c4), "r"(bar)
+      "r"(c3), "r"(bar)
       : "memory");
 }
 __device__ __forceinline__ void tma_load_3d(uint32_t dst,

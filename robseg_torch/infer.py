@@ -11,8 +11,11 @@ Usage:
 
 The config's ``DEVICE`` picks the device (``tpu``/``gpu``/``cuda`` -> the
 CUDA card, ``cpu`` -> the CPU). On CUDA the hand-written kernels always
-run; TF32 is off for matmuls and convolutions. On exit the CLI prints one
-``kernel launches: {...}`` JSON line with each kernel's launch count.
+run. ``--precision`` (``PRECISION_HELP``): ``default`` runs float32 with
+TF32 in cuBLAS and cuDNN, the reference's numerics class; ``bf16`` casts
+parameters and activations to bf16; ``f32`` is refused, as the JAX CLI
+refuses it with its block kernel. On exit the CLI prints one ``kernel
+launches: {...}`` JSON line with each kernel's launch count.
 """
 
 from __future__ import annotations
@@ -40,12 +43,27 @@ _REFUSED = {
     "shard": "sharded SEA across devices",
     "fused": "--fused (the port's kernels are always on under CUDA)",
 }
+PRECISION_HELP = (
+    "default: float32 parameters and activations, cuBLAS and cuDNN in TF32 "
+    "(the numerics class of the JAX package's default: XLA's default "
+    "precision, which is TF32 on this card and bf16 passes on a TPU); the "
+    "block kernel rounds its matmul operands to bf16, as the TPU kernel "
+    "does. bf16: bf16 parameters and activations (the block and FPN kernels "
+    "in their bf16 I/O forms), float32 logits, loss and attack. f32: "
+    "refused, see its error")
+F32_REFUSED = (
+    "--precision f32: the ConvNeXt block kernel rounds its matmul operands "
+    "to bf16 (XLA-DEFAULT numerics, as the TPU kernel does) and cannot "
+    "honor --precision f32; use --precision default (same numerics class)")
 
 
 def set_numerics() -> None:
-    """The main path's float32 numerics: no TF32 in matmuls or convs."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    """The reference's numerics class outside the kernels: TF32 in cuBLAS
+    matmuls and cuDNN convolutions, under ``default`` and ``bf16`` alike
+    (what XLA does with float32 at its default precision on this card).
+    The kernels do not read these flags."""
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
 
 
 def load_weights(module: torch.nn.Module, ckpt_path: str) -> None:
@@ -75,8 +93,7 @@ def parse_args(argv=None):
                         help=".pth state_dict (overrides EVAL.MODEL_PATH)")
     parser.add_argument("--precision", type=str, default="default",
                         choices=["default", "bf16", "f32"],
-                        help="default and f32 both run float32 without "
-                             "TF32; bf16 is not ported yet")
+                        help=PRECISION_HELP)
     parser.add_argument("--cleanup", action="store_true",
                         help="delete the argmax-logs resume cache after a "
                              "completed sweep")
@@ -93,9 +110,8 @@ def parse_args(argv=None):
         if getattr(args, flag):
             parser.error(f"--{flag}: {what} is not ported to robseg_torch "
                          "yet; it is a later slice of the port (ROADMAP.md)")
-    if args.precision == "bf16":
-        parser.error("--precision bf16 is not ported to robseg_torch yet; it "
-                     "is a later slice of the port (ROADMAP.md)")
+    if args.precision == "f32":
+        parser.error(F32_REFUSED)
     return args
 
 
@@ -118,7 +134,7 @@ def main(argv=None):
     else:
         print(f"WARNING: no checkpoint at {ckpt_path!r}; "
               "evaluating random init")
-    logits_fn = ModelBundle(module.to(device)).logits_fn
+    logits_fn = ModelBundle(module.to(device), args.precision).logits_fn
 
     ds = get_segmentation_dataset(test_cfg["NAME"], root=dataset_cfg["ROOT"],
                                   split="val", crop_size=crop_size)

@@ -8,17 +8,21 @@ from robseg_torch.kernels.apgd_step import (  # noqa: F401
 from robseg_torch.kernels.confusion import (  # noqa: F401
     confusion_hist, confusion_matrix_cuda, confusion_matrix_plain)
 from robseg_torch.kernels.convnext_block import (  # noqa: F401
-    ConvNeXtBlockFn, convnext_block_dx_cuda, convnext_block_dx_plain,
+    ConvNeXtBlockFn, convnext_block_dx_bf16_cuda, convnext_block_dx_cuda,
+    convnext_block_dx_plain, convnext_block_fwd_bf16_cuda,
     convnext_block_fwd_cuda, convnext_block_plain)
 from robseg_torch.kernels.convnext_mlp import (  # noqa: F401
     ConvNeXtMlpFn, convnext_mlp_dx_cuda, convnext_mlp_dx_plain,
     convnext_mlp_fwd_cuda, convnext_mlp_fwd_plain, convnext_mlp_plain)
 from robseg_torch.kernels.fpn_conv import (  # noqa: F401
-    FpnConcatConvFn, fpn_concat_conv, fpn_concat_conv_dx_cuda,
-    fpn_concat_conv_dx_plain, fpn_concat_conv_fwd_cuda,
+    FpnConcatConvFn, fpn_concat_conv, fpn_concat_conv_dx_bf16_cuda,
+    fpn_concat_conv_dx_cuda, fpn_concat_conv_dx_plain,
+    fpn_concat_conv_fwd_bf16_cuda, fpn_concat_conv_fwd_cuda,
     fpn_concat_conv_fwd_plain, fpn_concat_conv_plain)
 
-# each CUDA wrapper counts its own launches (a plain int attribute)
+# each CUDA wrapper counts its own launches (a plain int attribute); the
+# bf16 I/O forms of the block and FPN kernels count apart from their
+# float32 forms
 CUDA_WRAPPERS = {
     "convnext_block_fwd": convnext_block_fwd_cuda,
     "convnext_block_dx": convnext_block_dx_cuda,
@@ -28,6 +32,10 @@ CUDA_WRAPPERS = {
     "fpn_concat_conv_dx": fpn_concat_conv_dx_cuda,
     "convnext_mlp_fwd": convnext_mlp_fwd_cuda,
     "convnext_mlp_dx": convnext_mlp_dx_cuda,
+    "convnext_block_fwd_bf16": convnext_block_fwd_bf16_cuda,
+    "convnext_block_dx_bf16": convnext_block_dx_bf16_cuda,
+    "fpn_concat_conv_fwd_bf16": fpn_concat_conv_fwd_bf16_cuda,
+    "fpn_concat_conv_dx_bf16": fpn_concat_conv_dx_bf16_cuda,
 }
 
 

@@ -106,10 +106,10 @@ _SIGNATURES = {
     "robseg_confusion": [_P, _P, _P, _I64, _I64, _I, _I64, _I, _P],
     "robseg_convnext_block_supported": [_I],
     "robseg_convnext_block_scratch": [_I] * 5,
-    "robseg_convnext_block_fwd": [_P] * 12 + [_I] * 5 + [_P],
-    "robseg_convnext_block_dx": [_P] * 12 + [_I] * 5 + [_P],
-    "robseg_fpn_fwd": [_P] * 4 + [_I] + [_P] * 5 + [_I] * 7 + [_P],
-    "robseg_fpn_dx": [_P] * 9 + [_I] * 8 + [_P],
+    "robseg_convnext_block_fwd": [_P] * 12 + [_I] * 7 + [_P],
+    "robseg_convnext_block_dx": [_P] * 12 + [_I] * 7 + [_P],
+    "robseg_fpn_fwd": [_P] * 4 + [_I] + [_P] * 5 + [_I] * 8 + [_P],
+    "robseg_fpn_dx": [_P] * 9 + [_I] * 9 + [_P],
     "robseg_convnext_mlp_supported": [_I],
     "robseg_convnext_mlp_scratch": [_I64] + [_I] * 4,
     "robseg_convnext_mlp_fwd": [_P] * 11 + [_I64, _I, _I, _P],

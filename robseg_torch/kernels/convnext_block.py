@@ -8,13 +8,22 @@ both JAX entry points, ``convnext_block_fused`` (stages 0-1) and
 
     out = x + gamma * (W2 . GELU(W1 . LN(dwconv7x7(x) + dwb) + b1) + b2)
 
-``x`` is channels-last ``(B, H, W, C)`` float32, as the JAX kernels take it.
-The parameters come in the layout of the reference ``state_dict``:
-``dw (C, 1, 7, 7)``, ``w1 (4C, C)``, ``w2 (C, 4C)``, vectors ``(C,)`` or
-``(4C,)``. The CUDA entry points pack them once per call into what the
-kernels read (depthwise taps ``(49, C)`` f32; bf16 K-major panels ``W1``,
-``W2``, and for the backward ``W2^T`` and ``W1^T``) in the one scratch
+``x`` is channels-last ``(B, H, W, C)``, as the JAX kernels take it,
+float32 or bfloat16 (the ``--precision bf16`` model); ``out`` and ``dx``
+are in ``x``'s dtype. The parameters come in the layout of the reference
+``state_dict``: ``dw (C, 1, 7, 7)``, ``w1 (4C, C)``, ``w2 (C, 4C)``,
+vectors ``(C,)`` or ``(4C,)``, all float32 or all bfloat16. The CUDA entry
+points pack them once per call into what the kernels read (depthwise taps
+``(49, C)`` f32; bf16 K-major panels ``W1``, ``W2``, and for the backward
+``W2^T`` and ``W1^T``; bf16 vectors upcast to f32) in the one scratch
 buffer the wrapper allocates.
+
+The bf16 form computes in float32 inside, exactly as the float32 form on
+the upcast inputs, and rounds ``out`` / ``dx`` once (the JAX kernel's
+contract: "f32 internal math (bf16 I/O ok)"). The forms count their
+launches apart: ``convnext_block_fwd_cuda`` / ``convnext_block_dx_cuda``
+(float32 I/O) and ``convnext_block_fwd_bf16_cuda`` /
+``convnext_block_dx_bf16_cuda`` (bf16 I/O).
 
 The MLP runs in one of two forms (``fused``): at ``C <= FUSED_MAX_C`` one
 kernel keeps the 4C hidden layer on chip, walking ``TILE_M``-token tiles
@@ -39,22 +48,27 @@ LN_EPS = 1e-6
 
 
 def convnext_block_plain(x, dw, dwb, ls, lb, w1, b1, w2, b2, gamma):
-    """The block in plain PyTorch ops, in the dtype of ``x``."""
+    """The block in plain PyTorch ops, in float32 on the upcast inputs,
+    rounded once to the dtype of ``x``."""
     c = x.shape[-1]
-    y = F.conv2d(x.permute(0, 3, 1, 2), dw, dwb, padding=3, groups=c)
+    x32 = x.float()
+    dw, dwb, ls, lb, w1, b1, w2, b2, gamma = (
+        t.float() for t in (dw, dwb, ls, lb, w1, b1, w2, b2, gamma))
+    y = F.conv2d(x32.permute(0, 3, 1, 2), dw, dwb, padding=3, groups=c)
     y = F.layer_norm(y.permute(0, 2, 3, 1), (c,), ls, lb, LN_EPS)
     h = F.gelu(F.linear(y, w1, b1), approximate="none")
-    return x + gamma * F.linear(h, w2, b2)
+    return (x32 + gamma * F.linear(h, w2, b2)).to(x.dtype)
 
 
 def convnext_block_dx_plain(x, dy, dw, dwb, ls, lb, w1, b1, w2, b2, gamma):
-    """Input gradient of :func:`convnext_block_plain` by autograd."""
+    """Input gradient of :func:`convnext_block_plain` by autograd, in
+    float32 on the upcast inputs, rounded once to the dtype of ``x``."""
     params = [p.detach() for p in (dw, dwb, ls, lb, w1, b1, w2, b2, gamma)]
     with torch.enable_grad():
-        xg = x.detach().requires_grad_(True)
+        xg = x.detach().float().requires_grad_(True)
         out = convnext_block_plain(xg, *params)
-        (dx,) = torch.autograd.grad(out, xg, dy)
-    return dx
+        (dx,) = torch.autograd.grad(out, xg, dy.float())
+    return dx.to(x.dtype)
 
 
 # the kernels' tiling (csrc/convnext_block.cu): 128-token tiles, 64-wide
@@ -73,16 +87,19 @@ def _sms(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _operands(x, params, names):
+IO_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _operands(x, params, names, io_dtype):
     """Check the operands (the kernels take the parameters as they are
-    stored, float32, and pack them themselves) and return the library and
-    the parameters, contiguous (the caller keeps them alive over the
-    launch)."""
-    if (not x.is_cuda or x.ndim != 4 or x.dtype != torch.float32
-            or not x.is_contiguous()):
-        raise ValueError("convnext_block: x must be a contiguous float32 "
-                         f"(B, H, W, C) CUDA tensor; got {x.dtype} "
-                         f"{tuple(x.shape)} on {x.device}, "
+    stored, all float32 or all bfloat16, and pack them themselves) and
+    return the library, the parameters, contiguous (the caller keeps them
+    alive over the launch), and whether they are bf16."""
+    if (not x.is_cuda or x.ndim != 4 or x.dtype != io_dtype
+            or not x.is_contiguous() or x.data_ptr() % 16):
+        raise ValueError(f"convnext_block: x must be a contiguous {io_dtype} "
+                         f"(B, H, W, C) CUDA tensor, 16-byte aligned; got "
+                         f"{x.dtype} {tuple(x.shape)} on {x.device}, "
                          f"contiguous={x.is_contiguous()}")
     c = x.shape[-1]
     lib = _build.library()
@@ -91,50 +108,46 @@ def _operands(x, params, names):
     shapes = {"dw": (c, 1, 7, 7), "w1": (4 * c, c), "b1": (4 * c,),
               "w2": (c, 4 * c)}
     dev = x.get_device()
+    p_dtype = params[0].dtype
     out = []
     for name, t in zip(names, params):
         shape = shapes.get(name, (c,))
-        if (t.get_device() != dev or t.dtype != torch.float32
-                or t.shape != shape):
+        if (t.get_device() != dev or t.dtype != p_dtype
+                or p_dtype not in IO_DTYPES or t.shape != shape):
             raise ValueError(
-                f"convnext_block: {name} must be float32 {shape} on "
-                f"{x.device}; got {t.dtype} {tuple(t.shape)} on {t.device}")
+                f"convnext_block: {name} must be {p_dtype} (every parameter "
+                f"float32, or every one bfloat16) {shape} on {x.device}; got "
+                f"{t.dtype} {tuple(t.shape)} on {t.device}")
         out.append(t if t.is_contiguous() else t.contiguous())
-    return lib, out
+    return lib, out, p_dtype == torch.bfloat16
 
 
 _FWD_NAMES = ("dw", "dwb", "ls", "lb", "w1", "b1", "w2", "b2", "gamma")
 _DX_NAMES = ("dw", "dwb", "ls", "lb", "w1", "b1", "w2", "gamma")
 
 
-def convnext_block_fwd_cuda(x, dw, dwb, ls, lb, w1, b1, w2, b2, gamma):
-    """Forward kernels (packing, dwconv+LN, then the MLP) on a CUDA
-    tensor."""
-    lib, params = _operands(x, (dw, dwb, ls, lb, w1, b1, w2, b2, gamma),
-                            _FWD_NAMES)
+def _fwd(counter, io_dtype, x, dw, dwb, ls, lb, w1, b1, w2, b2, gamma):
+    lib, params, p_bf16 = _operands(
+        x, (dw, dwb, ls, lb, w1, b1, w2, b2, gamma), _FWD_NAMES, io_dtype)
     b, h, w, c = x.shape
     scratch = torch.empty(lib.robseg_convnext_block_scratch(b, h, w, c, 0),
                           dtype=torch.uint8, device=x.device)
     out = torch.empty_like(x)
     err = lib.robseg_convnext_block_fwd(
         x.data_ptr(), *(t.data_ptr() for t in params), scratch.data_ptr(),
-        out.data_ptr(), b, h, w, c,
-        _sms(x.device), torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(err, "convnext_block_fwd")
-    convnext_block_fwd_cuda.launches += 1
+        out.data_ptr(), b, h, w, c, int(io_dtype == torch.bfloat16),
+        int(p_bf16), _sms(x.device),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, counter.__name__)
+    counter.launches += 1
     return out
 
 
-convnext_block_fwd_cuda.launches = 0
-
-
-def convnext_block_dx_cuda(x, dy, dw, dwb, ls, lb, w1, b1, w2, b2, gamma):
-    """Input-gradient kernels (packing, dwconv+LN recompute, MLP and LN
-    backward, then the flipped 7x7 correlation) on CUDA tensors."""
+def _dx(counter, io_dtype, x, dy, dw, dwb, ls, lb, w1, b1, w2, b2, gamma):
     del b2  # the gradient does not depend on it
-    lib, params = _operands(x, (dw, dwb, ls, lb, w1, b1, w2, gamma),
-                            _DX_NAMES)
-    if dy.shape != x.shape or dy.dtype != torch.float32 or dy.device != x.device:
+    lib, params, p_bf16 = _operands(
+        x, (dw, dwb, ls, lb, w1, b1, w2, gamma), _DX_NAMES, io_dtype)
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
         raise ValueError("convnext_block_dx: dy must match x")
     dy = dy.contiguous()
     b, h, w, c = x.shape
@@ -143,15 +156,51 @@ def convnext_block_dx_cuda(x, dy, dw, dwb, ls, lb, w1, b1, w2, b2, gamma):
     dx = torch.empty_like(x)
     err = lib.robseg_convnext_block_dx(
         x.data_ptr(), dy.data_ptr(), *(t.data_ptr() for t in params),
-        scratch.data_ptr(), dx.data_ptr(),
-        b, h, w, c, _sms(x.device),
+        scratch.data_ptr(), dx.data_ptr(), b, h, w, c,
+        int(io_dtype == torch.bfloat16), int(p_bf16), _sms(x.device),
         torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(err, "convnext_block_dx")
-    convnext_block_dx_cuda.launches += 1
+    _build.check(err, counter.__name__)
+    counter.launches += 1
     return dx
 
 
-convnext_block_dx_cuda.launches = 0
+def convnext_block_fwd_cuda(x, dw, dwb, ls, lb, w1, b1, w2, b2, gamma):
+    """Forward kernels (packing, dwconv+LN, then the MLP) on a float32
+    CUDA tensor."""
+    return _fwd(convnext_block_fwd_cuda, torch.float32, x, dw, dwb, ls, lb,
+                w1, b1, w2, b2, gamma)
+
+
+def convnext_block_fwd_bf16_cuda(x, dw, dwb, ls, lb, w1, b1, w2, b2, gamma):
+    """The forward kernels' bf16 I/O form: ``x`` and ``out`` bfloat16."""
+    return _fwd(convnext_block_fwd_bf16_cuda, torch.bfloat16, x, dw, dwb, ls,
+                lb, w1, b1, w2, b2, gamma)
+
+
+def convnext_block_dx_cuda(x, dy, dw, dwb, ls, lb, w1, b1, w2, b2, gamma):
+    """Input-gradient kernels (packing, dwconv+LN recompute, MLP and LN
+    backward, then the flipped 7x7 correlation) on float32 CUDA
+    tensors."""
+    return _dx(convnext_block_dx_cuda, torch.float32, x, dy, dw, dwb, ls, lb,
+               w1, b1, w2, b2, gamma)
+
+
+def convnext_block_dx_bf16_cuda(x, dy, dw, dwb, ls, lb, w1, b1, w2, b2,
+                                gamma):
+    """The input-gradient kernels' bf16 I/O form: ``x``, ``dy`` and ``dx``
+    bfloat16."""
+    return _dx(convnext_block_dx_bf16_cuda, torch.bfloat16, x, dy, dw, dwb,
+               ls, lb, w1, b1, w2, b2, gamma)
+
+
+for _fn in (convnext_block_fwd_cuda, convnext_block_fwd_bf16_cuda,
+            convnext_block_dx_cuda, convnext_block_dx_bf16_cuda):
+    _fn.launches = 0
+# the kernel forms by the dtype of x
+_FWD_CUDA = {torch.float32: convnext_block_fwd_cuda,
+             torch.bfloat16: convnext_block_fwd_bf16_cuda}
+_DX_CUDA = {torch.float32: convnext_block_dx_cuda,
+            torch.bfloat16: convnext_block_dx_bf16_cuda}
 
 
 class ConvNeXtBlockFn(torch.autograd.Function):
@@ -162,16 +211,15 @@ class ConvNeXtBlockFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dw, dwb, ls, lb, w1, b1, w2, b2, gamma):
         ctx.save_for_backward(x, dw, dwb, ls, lb, w1, b1, w2, b2, gamma)
-        if x.is_cuda:
-            return convnext_block_fwd_cuda(x, dw, dwb, ls, lb, w1, b1, w2,
-                                           b2, gamma)
-        return convnext_block_plain(x, dw, dwb, ls, lb, w1, b1, w2, b2,
-                                    gamma)
+        fn = _FWD_CUDA.get(x.dtype, _FWD_CUDA[torch.float32]) if x.is_cuda \
+            else convnext_block_plain
+        return fn(x, dw, dwb, ls, lb, w1, b1, w2, b2, gamma)
 
     @staticmethod
     def backward(ctx, dy):
         x, *params = ctx.saved_tensors
-        fn = convnext_block_dx_cuda if x.is_cuda else convnext_block_dx_plain
+        fn = _DX_CUDA.get(x.dtype, _DX_CUDA[torch.float32]) if x.is_cuda \
+            else convnext_block_dx_plain
         return (fn(x, dy, *params),) + (None,) * len(params)
 
 

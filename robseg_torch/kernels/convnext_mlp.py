@@ -13,7 +13,11 @@ f32 ``h``).
 without the residual (the caller adds it). ``y`` is channels-last
 ``(B, H, W, C)`` float32; the parameters come in the layout of the
 reference ``state_dict``, as the block kernel takes them: ``w1 (4C, C)``,
-``w2 (C, 4C)``, vectors ``(C,)`` or ``(4C,)``.
+``w2 (C, 4C)``, vectors ``(C,)`` or ``(4C,)``. Through ``convnext_mlp``,
+``y`` and the parameters may also be bfloat16 (the ``--precision bf16``
+model): they are upcast, which is exact, and the tail writes float32, as
+JAX's does (``convnext_mlp.py:168, 278, 315``); the input gradient comes
+back in ``y``'s dtype.
 
 The four JAX entry points are the four ``MODES``: ``residual`` saves the
 pre-GELU hidden ``h`` (N, 4C) f32 in the forward so the backward does two
@@ -203,6 +207,9 @@ class ConvNeXtMlpFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, use_kernel, save_h, bf16, y, ls, lb, w1, b1, w2, b2,
                 gamma):
+        ctx.y_dtype = y.dtype
+        y, ls, lb, w1, b1, w2, b2, gamma = (
+            t.float() for t in (y, ls, lb, w1, b1, w2, b2, gamma))
         fwd = convnext_mlp_fwd_cuda if use_kernel else convnext_mlp_fwd_plain
         out, h = fwd(y, ls, lb, w1, b1, w2, b2, gamma, save_h=save_h,
                      bf16_operands=bf16)
@@ -217,7 +224,7 @@ class ConvNeXtMlpFn(torch.autograd.Function):
         fn = convnext_mlp_dx_cuda if ctx.use_kernel else convnext_mlp_dx_plain
         dx = fn(y, gout.contiguous(), ls, lb, w1, b1, w2, gamma,
                 h=h[0] if h else None, bf16_operands=ctx.bf16)
-        return (None, None, None, dx) + (None,) * 7
+        return (None, None, None, dx.to(ctx.y_dtype)) + (None,) * 7
 
 
 def convnext_mlp(y, ls, lb, w1, b1, w2, b2, gamma, mode="residual"):

@@ -46,11 +46,27 @@ class ModelBundle:
     ``logits_fn(x (B,3,H,W) in [0,1]) -> logits (B,K,H,W)`` the attacks
     and the evaluation consume (counterpart of robseg_tpu's ModelBundle).
     The weights are attack-time constants: they are frozen, so autograd
-    tracks the input gradient only."""
+    tracks the input gradient only.
+
+    ``precision="bf16"`` is ``tools/infer.py --precision bf16``: the
+    module's floating parameters and buffers (the BatchNorm statistics
+    too) become bfloat16, and ``logits_fn`` runs the module on the input
+    cast to bfloat16 and returns float32 logits, so the attack's iterate,
+    loss and step stay float32. ``"default"`` leaves the module as it
+    is."""
     module: nn.Module
+    precision: str = "default"
+    PRECISIONS = ("default", "bf16")
 
     def __post_init__(self):
+        if self.precision not in self.PRECISIONS:
+            raise ValueError(f"precision {self.precision!r}: one of "
+                             f"{self.PRECISIONS}")
         self.module.eval().requires_grad_(False)
+        if self.precision == "bf16":
+            self.module.to(torch.bfloat16)
 
     def logits_fn(self, x: torch.Tensor) -> torch.Tensor:
+        if self.precision == "bf16":
+            return self.module(x.to(torch.bfloat16)).float()
         return self.module(x)

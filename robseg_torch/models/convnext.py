@@ -29,6 +29,12 @@ routing JAX gives them:
   * ``fused_mlp=False``: the unfused block in plain ops.
 
 The parameters are the same in every setting.
+
+Under ``--precision bf16`` (parameters and input bf16) the dtype trail is
+JAX's: the block kernel and the plain block keep bf16, while an MLP-tail
+kernel writes float32 (as JAX's does), so ``x + y`` promotes and every
+later layer computes in float32 on upcast bf16 parameters
+(``models/layers.py``).
 """
 
 from __future__ import annotations
@@ -42,7 +48,8 @@ import torch.nn.functional as F
 from robseg_torch.kernels.convnext_block import convnext_block
 from robseg_torch.kernels.convnext_mlp import MODES as MLP_MODES
 from robseg_torch.kernels.convnext_mlp import convnext_mlp
-from robseg_torch.models.layers import LN_EPS, LayerNorm2d
+from robseg_torch.models.layers import (LN_EPS, Conv2d, LayerNorm,
+                                        LayerNorm2d, Linear)
 
 # [depths, dims, aux_head_channels, drop_path_rate]
 # (copy of robseg_tpu/models/convnext.py:30; tests/test_torch_import.py
@@ -74,10 +81,10 @@ class ConvNeXtBlock(nn.Module):
                              f"one of {FUSED_MLP_MODES}")
         self.fused_mlp = fused_mlp
         self.fused_mlp_mode = fused_mlp_mode
-        self.dwconv = nn.Conv2d(dim, dim, 7, padding=3, groups=dim)
-        self.norm = nn.LayerNorm(dim, eps=LN_EPS)
-        self.pwconv1 = nn.Linear(dim, 4 * dim)
-        self.pwconv2 = nn.Linear(4 * dim, dim)
+        self.dwconv = Conv2d(dim, dim, 7, padding=3, groups=dim)
+        self.norm = LayerNorm(dim, eps=LN_EPS)
+        self.pwconv1 = Linear(dim, 4 * dim)
+        self.pwconv2 = Linear(4 * dim, dim)
         self.gamma = nn.Parameter(torch.full((dim,), layer_scale_init_value))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -110,8 +117,8 @@ class CvStStem(nn.Module):
     def __init__(self, planes: int = 48):
         super().__init__()
         self.stem = nn.Sequential(
-            nn.Conv2d(3, planes, 3, stride=2, padding=1), LayerNorm2d(planes),
-            nn.GELU(), nn.Conv2d(planes, 2 * planes, 3, stride=2, padding=1),
+            Conv2d(3, planes, 3, stride=2, padding=1), LayerNorm2d(planes),
+            nn.GELU(), Conv2d(planes, 2 * planes, 3, stride=2, padding=1),
             LayerNorm2d(2 * planes), nn.GELU())
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -132,11 +139,11 @@ class ConvNeXt(nn.Module):
         if "CVST" in variant:
             stem = CvStStem(dims[0] // 2)
         else:
-            stem = nn.Sequential(nn.Conv2d(3, dims[0], 4, stride=4),
+            stem = nn.Sequential(Conv2d(3, dims[0], 4, stride=4),
                                  LayerNorm2d(dims[0]))
         self.downsample_layers = nn.ModuleList([stem] + [
-            nn.Sequential(nn.LayerNorm(dims[i - 1], eps=LN_EPS),
-                          nn.Conv2d(dims[i - 1], dims[i], 2, stride=2))
+            nn.Sequential(LayerNorm(dims[i - 1], eps=LN_EPS),
+                          Conv2d(dims[i - 1], dims[i], 2, stride=2))
             for i in range(1, 4)])
         self.stages = nn.ModuleList([
             nn.Sequential(*[ConvNeXtBlock(dims[i], layer_scale_init_value,
@@ -144,7 +151,7 @@ class ConvNeXt(nn.Module):
                             for _ in range(depths[i])])
             for i in range(4)])
         for i in range(4):
-            self.add_module(f"norm{i}", nn.LayerNorm(dims[i], eps=LN_EPS))
+            self.add_module(f"norm{i}", LayerNorm(dims[i], eps=LN_EPS))
         self.apply(self._init_weights)
 
     @staticmethod

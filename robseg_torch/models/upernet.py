@@ -8,8 +8,14 @@ Port of ``robseg_tpu/models/upernet.py`` in its eval form. The
     convs on slices of the bottleneck weight, summed, then the folded
     BatchNorm and ReLU, so the 2048-channel concat is never built;
   * ``True`` or ``"pallas"``: the same function through the FPN
-    concat-conv kernel (``kernels/fpn_conv.py``), bf16 operands;
+    concat-conv kernel (``kernels/fpn_conv.py``), bf16 operands, output in
+    the maps' dtype;
   * ``False``: the concat followed by the ``ConvModule``.
+
+The BatchNorm fold ``s, t`` is computed in float32 whatever the
+parameters' dtype (JAX ``upernet.py:95-96``); the split bottleneck casts
+it, and its weight slices, to the maps' dtype (JAX ``:100-101``), the
+kernel takes it in float32.
 
 Module names follow the reference ``state_dict``
 (``semseg/models/uperforseg.py``); every setting has the same parameters.
@@ -25,7 +31,7 @@ import torch.nn.functional as F
 
 from robseg_torch.kernels.fpn_conv import fpn_concat_conv
 from robseg_torch.models.convnext import CONVNEXT_SETTINGS, ConvNeXt
-from robseg_torch.models.layers import AdaptiveAvgPool, ConvModule
+from robseg_torch.models.layers import AdaptiveAvgPool, Conv2d, ConvModule
 from robseg_torch.ops.resize import resize_bilinear
 
 FUSED_HEADS = (False, "split", True, "pallas")
@@ -58,13 +64,14 @@ class UperNetHead(nn.Module):
             ConvModule(channels, channels, 3, 1) for _ in in_channels[:-1]])
         self.fpn_bottleneck = ConvModule(len(in_channels) * channels,
                                          channels, 3, 1)
-        self.classifier = nn.Conv2d(channels, num_classes, 1)
+        self.classifier = Conv2d(channels, num_classes, 1)
 
     def _bn_fold(self):
-        """The eval BatchNorm of the bottleneck as a scale and shift."""
+        """The eval BatchNorm of the bottleneck as a float32 scale and
+        shift."""
         bn = self.fpn_bottleneck.batch_norm
-        s = bn.weight * torch.rsqrt(bn.running_var + bn.eps)
-        return s, bn.bias - bn.running_mean * s
+        s = bn.weight.float() * torch.rsqrt(bn.running_var.float() + bn.eps)
+        return s, bn.bias.float() - bn.running_mean.float() * s
 
     def _split_bottleneck(self, fpn_outs) -> torch.Tensor:
         """relu(bn(conv3x3(concat(fpn_outs)))) as a sum of per-source convs
@@ -73,10 +80,11 @@ class UperNetHead(nn.Module):
         ch = self.channels
         acc = None
         for i, f in enumerate(fpn_outs):
-            o = F.conv2d(f, conv.weight[:, i * ch:(i + 1) * ch], padding=1)
+            o = F.conv2d(f, conv.weight[:, i * ch:(i + 1) * ch].to(f.dtype),
+                         padding=1)
             acc = o if acc is None else acc + o
-        s, t = self._bn_fold()
-        return F.relu(acc * s[:, None, None] + t[:, None, None])
+        s, t = (v.to(acc.dtype)[:, None, None] for v in self._bn_fold())
+        return F.relu(acc * s + t)
 
     def _kernel_bottleneck(self, fpn_outs) -> torch.Tensor:
         """The same function through ``fpn_concat_conv``, on channels-last
@@ -122,7 +130,7 @@ class UperNetFCNHead(nn.Module):
         super().__init__()
         self.in_index = in_index
         self.convs = nn.ModuleList([ConvModule(in_channels, channels, 3, 1)])
-        self.classifier = nn.Conv2d(channels, num_classes, 1)
+        self.classifier = Conv2d(channels, num_classes, 1)
 
     def forward(self, feats: Sequence[torch.Tensor]) -> torch.Tensor:
         return self.classifier(self.convs[0](feats[self.in_index]))

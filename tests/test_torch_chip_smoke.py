@@ -166,3 +166,112 @@ def test_kernel_kind(smoke, name, kind):
 ])
 def test_kernel_kind_on_the_fused_variant_path(smoke, name, kind):
     assert smoke.kernel_kind(name, tail=True) == kind
+
+
+def test_bf16_forms_round_the_float32_form_once(smoke):
+    """The bf16 check's reference: the float32 form on the upcast operands
+    (lists too), its result (or each of a tuple) rounded once to bf16."""
+    seen = []
+
+    def f32_form(xs, w):
+        seen.append([t.dtype for t in xs] + [w.dtype])
+        return xs[0] * w, xs[1] * w
+
+    x = [torch.tensor([1.0, 1 + 2 ** -7]).to(torch.bfloat16)] * 2
+    w = torch.tensor(3.0).to(torch.bfloat16)
+    got, want = smoke.bf16_forms(lambda xs, w: "kernel", f32_form, x, w)
+    assert got == "kernel"
+    assert seen == [[torch.float32] * 3]
+    # 3 * (1 + 2^-7) = 3 + 3 * 2^-7 lies halfway between two bf16 values
+    # (steps of 2^-6 there) and rounds to the even one, 3 + 2^-5
+    assert all(t.dtype == torch.bfloat16 for t in want)
+    assert float(want[0][1]) == 3 + 2 ** -5
+
+
+def test_n_differ_counts_bits(smoke):
+    a = torch.tensor([1.0, -0.0, 2.0]).to(torch.bfloat16)
+    b = torch.tensor([1.0, 0.0, 2 + 2 ** -6]).to(torch.bfloat16)
+    assert smoke.n_differ(a, a.clone()) == 0
+    # -0 and +0 differ in their bits; 2 and 2 + 2^-6 by one bf16 step
+    assert smoke.n_differ(a, b) == 2
+    assert smoke.n_differ((a, a), (a, b)) == 2
+
+
+def test_strict_float32_scopes_tf32_off(smoke):
+    flags = torch.backends.cuda.matmul, torch.backends.cudnn
+    saved = [f.allow_tf32 for f in flags]
+    try:
+        for f in flags:
+            f.allow_tf32 = True
+        with smoke.strict_float32():
+            assert not any(f.allow_tf32 for f in flags)
+        assert all(f.allow_tf32 for f in flags)
+    finally:
+        for f, v in zip(flags, saved):
+            f.allow_tf32 = v
+
+
+@pytest.mark.parametrize("name,kind", [
+    ("void (anonymous namespace)::dwconv_ln_kernel<(anonymous namespace)::"
+     "DwTile<8, 16, 8, 2>, __nv_bfloat16>(x)", "block depthwise"),
+    ("void (anonymous namespace)::dwcorr_kernel<__nv_bfloat16>(x)",
+     "block depthwise"),
+    ("void (anonymous namespace)::mlp_fused_kernel<96, false, false, "
+     "__nv_bfloat16>(x)", "block mlp"),
+    ("void (anonymous namespace)::mlp_gemm_kernel<5>(x)", "block mlp"),
+    ("void (anonymous namespace)::fpn_gemm_kernel<__nv_bfloat16>(x)",
+     "FPN concat-conv"),
+    ("void (anonymous namespace)::relu_grad_kernel<__nv_bfloat16>(x)",
+     "FPN concat-conv"),
+])
+def test_kernel_kind_of_the_bf16_forms(smoke, name, kind):
+    assert smoke.kernel_kind(name) == kind
+
+
+class _Event:
+    def __init__(self, key, us, count):
+        self.key, self.self_device_time_total, self.count = key, us, count
+
+
+def _fake_profiler(monkeypatch, windows):
+    """torch.profiler.profile handing back ``windows`` in turn (each a list
+    of events), and a no-op torch.cuda.synchronize."""
+    import torch.profiler
+    seen = iter(windows)
+
+    class Profile:
+        def __init__(self, **_):
+            self.events = next(seen)
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *_):
+            return False
+
+        def key_averages(self):
+            return self.events
+
+    monkeypatch.setattr(torch.profiler, "profile", Profile)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+
+
+def test_profiled_takes_an_empty_window_again(smoke, monkeypatch):
+    """CUPTI now and then hands back a window with no device time: it is
+    taken again, and the next window's rows are per call."""
+    _fake_profiler(monkeypatch, [[_Event("k", 0.0, 3)],
+                                 [_Event("k", 600.0, 3),
+                                  _Event("host", 0.0, 3)]])
+    calls = []
+    rows, wall = smoke.profiled(lambda: calls.append(1), reps=3)
+    assert rows == [("k", pytest.approx(0.2), 1.0)]
+    assert len(calls) == 6 and wall >= 0.0
+
+
+def test_split_not_measured_when_every_window_is_empty(smoke, monkeypatch,
+                                                       capsys):
+    """No device time in any window: the split says so and the run goes on
+    (a kernel's time comes from CUDA events, not from the profiler)."""
+    _fake_profiler(monkeypatch, [[] for _ in range(3)])
+    assert smoke.print_split("block x fwd", lambda: None) == {}
+    assert "block x fwd split: not measured" in capsys.readouterr().out

@@ -12,6 +12,10 @@ is held to atol = rtol = 2e-2 and the input gradient to a max error of
 2e-2 relative to its largest entry (the bounds of tests/test_kernels.py).
 The APGD step and the confusion histogram are held to exact equality.
 
+The bf16 I/O forms of the block and FPN kernels against their float32
+forms on the upcast inputs, the result rounded once to bf16: bit for bit
+(the forms compute the same float32 values and round once at the store).
+
 The FPN concat-conv and the bf16-operand MLP-tail kernels against plain
 versions that round where they round: input gradient max error <= 2e-3
 of its largest entry; forward max abs error <= 1e-3 for the FPN, and max
@@ -244,4 +248,89 @@ def test_fused_model_goes_through_new_kernels(dev):
     assert counts["convnext_block_fwd"] == counts["convnext_block_dx"] == 0
     assert counts["convnext_mlp_fwd"] == counts["convnext_mlp_dx"] == 15
     assert counts["fpn_concat_conv_fwd"] == counts["fpn_concat_conv_dx"] == 1
+    assert torch.isfinite(x.grad).all()
+
+
+def _bf16_pair(fn_bf16, fn_f32, bf_args, dtype=torch.bfloat16):
+    """The bf16 form on bf16 operands, and the float32 form on the same
+    values upcast, its result rounded once to bf16."""
+    got = fn_bf16(*bf_args)
+    up = [[t.float() for t in a] if isinstance(a, list) else
+          a.float() if a.dtype == dtype else a for a in bf_args]
+    want = fn_f32(*up)
+    if isinstance(want, tuple):
+        return got, tuple(w.to(dtype) for w in want)
+    return got, want.to(dtype)
+
+
+# the four stage widths of the model (fused form at 96 and 192, two GEMMs
+# at 384 and 768) and the ragged VOC stage size
+@pytest.mark.parametrize("shape", [(2, 37, 20, 96), (2, 119, 119, 96),
+                                   (1, 30, 30, 192), (1, 15, 15, 384),
+                                   (1, 8, 9, 768)])
+def test_block_bf16_forms_equal_f32_kernels_on_upcast_inputs(dev, shape):
+    """bf16 I/O: bit for bit the float32 form on the upcast inputs,
+    rounded once at the output; the parameters bf16 too."""
+    rng = np.random.default_rng(17)
+    p = [t.to(torch.bfloat16) for t in block_params(rng, shape[-1], dev)]
+    x = torch.tensor(rng.normal(size=shape), device=dev).to(torch.bfloat16)
+    dy = torch.tensor(rng.normal(size=shape), device=dev).to(torch.bfloat16)
+    kernels.reset_launch_counts()
+    out, out_want = _bf16_pair(cb.convnext_block_fwd_bf16_cuda,
+                               cb.convnext_block_fwd_cuda, [x, *p])
+    dx, dx_want = _bf16_pair(cb.convnext_block_dx_bf16_cuda,
+                             cb.convnext_block_dx_cuda, [x, dy, *p])
+    torch.cuda.synchronize()
+    assert out.dtype == dx.dtype == torch.bfloat16
+    assert torch.equal(out, out_want) and torch.equal(dx, dx_want)
+    counts = kernels.launch_counts()
+    assert counts["convnext_block_fwd_bf16"] == counts["convnext_block_dx_bf16"] == 1
+    # and against the plain version on the same bf16 operands
+    torch.testing.assert_close(out.float(),
+                               cb.convnext_block_plain(x, *p).float(),
+                               atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("n,shape,co", [(4, (2, 19, 16, 128), 128),
+                                        (3, (3, 40, 72, 96), 160),
+                                        (1, (8, 64, 64, 64), 64)])
+def test_fpn_bf16_forms_equal_f32_kernels_on_upcast_inputs(dev, n, shape,
+                                                          co):
+    rng = np.random.default_rng(19)
+    bf = lambda a: torch.tensor(a, device=dev).to(torch.bfloat16)  # noqa
+    xs = [bf(rng.normal(size=shape)) for _ in range(n)]
+    w = bf(rng.normal(size=(n, 3, 3, shape[-1], co)) / 30)
+    s = torch.tensor(1 + 0.1 * rng.normal(size=co), dtype=torch.float32,
+                     device=dev)
+    b = torch.tensor(0.1 * rng.normal(size=co), dtype=torch.float32,
+                     device=dev)
+    out, out_want = _bf16_pair(fc.fpn_concat_conv_fwd_bf16_cuda,
+                               fc.fpn_concat_conv_fwd_cuda, [xs, w, s, b])
+    dy = bf(rng.normal(size=out.shape))
+    dx, dx_want = _bf16_pair(fc.fpn_concat_conv_dx_bf16_cuda,
+                             fc.fpn_concat_conv_dx_cuda, [dy, out, w, s])
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and torch.equal(out, out_want)
+    assert len(dx) == n
+    for a, e in zip(dx, dx_want):
+        assert a.dtype == torch.bfloat16 and torch.equal(a, e)
+
+
+def test_bf16_models_go_through_bf16_forms(dev):
+    from robseg_torch.models import ModelBundle
+    from robseg_torch.models.upernet import UperNetForSemanticSegmentation
+    torch.manual_seed(0)
+    m = UperNetForSemanticSegmentation("T_CVST", 21, fused_mlp_mode="block",
+                                       fused_head="pallas")
+    x = torch.rand(1, 3, 64, 64, device=dev, requires_grad=True)
+    kernels.reset_launch_counts()
+    logits = ModelBundle(m.to(dev), "bf16").logits_fn(x)
+    assert logits.dtype == torch.float32
+    logits.sum().backward()
+    counts = kernels.launch_counts()
+    assert counts["convnext_block_fwd"] == counts["convnext_block_dx"] == 0
+    assert counts["convnext_block_fwd_bf16"] == 18
+    assert counts["convnext_block_dx_bf16"] == 18
+    assert counts["fpn_concat_conv_fwd_bf16"] == 1
+    assert counts["fpn_concat_conv_dx_bf16"] == 1
     assert torch.isfinite(x.grad).all()

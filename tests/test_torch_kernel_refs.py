@@ -259,7 +259,11 @@ def test_block_mlp_form_by_width():
 @pytest.mark.parametrize("name", ["convnext_block_fwd", "convnext_block_dx",
                                   "apgd_linf_step", "confusion_matrix",
                                   "fpn_concat_conv_fwd", "fpn_concat_conv_dx",
-                                  "convnext_mlp_fwd", "convnext_mlp_dx"])
+                                  "convnext_mlp_fwd", "convnext_mlp_dx",
+                                  "convnext_block_fwd_bf16",
+                                  "convnext_block_dx_bf16",
+                                  "fpn_concat_conv_fwd_bf16",
+                                  "fpn_concat_conv_dx_bf16"])
 def test_cuda_wrappers_refuse_cpu_tensors(name):
     """A CUDA wrapper raises on a CPU tensor (before any build) and counts
     no launch; only the dispatchers pick the plain version."""
@@ -269,6 +273,7 @@ def test_cuda_wrappers_refuse_cpu_tensors(name):
     img = torch.rand(2, 3, 4, 4)
     lab = torch.zeros(2, 4, 4, dtype=torch.int64)
     fw, fv = torch.zeros(1, 3, 3, 96, 96), torch.ones(96)
+    xb, pb = x.bfloat16(), [t.bfloat16() for t in p]
     calls = {
         "convnext_block_fwd": lambda: kernels.convnext_block_fwd_cuda(x, *p),
         "convnext_block_dx": lambda: kernels.convnext_block_dx_cuda(x, x, *p),
@@ -283,6 +288,14 @@ def test_cuda_wrappers_refuse_cpu_tensors(name):
         "convnext_mlp_fwd": lambda: kernels.convnext_mlp_fwd_cuda(x, *p[2:]),
         "convnext_mlp_dx": lambda: kernels.convnext_mlp_dx_cuda(
             x, x, *p[2:7], p[8]),
+        "convnext_block_fwd_bf16": lambda: kernels.convnext_block_fwd_bf16_cuda(
+            xb, *pb),
+        "convnext_block_dx_bf16": lambda: kernels.convnext_block_dx_bf16_cuda(
+            xb, xb, *pb),
+        "fpn_concat_conv_fwd_bf16":
+            lambda: kernels.fpn_concat_conv_fwd_bf16_cuda([xb], fw, fv, fv),
+        "fpn_concat_conv_dx_bf16": lambda: kernels.fpn_concat_conv_dx_bf16_cuda(
+            xb, xb, fw, fv),
     }
     before = kernels.launch_counts()[name]
     with pytest.raises(ValueError, match="CUDA"):

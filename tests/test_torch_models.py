@@ -221,5 +221,16 @@ def test_bench_fused_entry_point_on_cpu(capsys):
         for m in ("rs", "head"))
     assert all(0.0 <= res[f"attack_acc_{m}"] <= 1.0 for m in ("rs", "head"))
     assert lines[-2].startswith("kernel launches: ")
-    with pytest.raises(SystemExit):
-        bench_fused.parse_args(["--bf16"])
+
+
+def test_bench_fused_bf16_on_cpu(capsys):
+    """``--bf16`` (bf16 parameters and activations) in a tail mode, whose
+    float32 output promotes every later layer (the FPN kernel's bf16 form
+    is held against JAX in tests/test_torch_precision.py); it replaces the
+    refusal this flag met before the bf16 path was ported."""
+    bench_fused.main(["--device", "cpu", "--hw", "32", "--batch", "1",
+                      "--n_iter", "1", "--modes", "rs", "--skip_backbone",
+                      "--bf16"])
+    res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert sorted(res) == ["attack_acc_rs", "attack_step_imgs_per_s_rs"]
+    assert 0.0 <= res["attack_acc_rs"] <= 1.0

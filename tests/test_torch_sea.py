@@ -118,9 +118,9 @@ def test_run_sea_resumes_from_cache(rng, tmp_path):
     assert again == first
 
 
-def test_infer_cli_clean_eval(tmp_path):
-    """``robseg_torch.infer --no-adversarial`` end to end on the CPU: the
-    full-width UperNet at the VOC crop (473^2), one image."""
+def _cli_clean_eval(tmp_path, *flags):
+    """``robseg_torch.infer --no-adversarial`` on one fixture VOC image;
+    returns the clean stats and the kernel launch counts it logged."""
     root = tmp_path / "voc"
     subprocess.run([sys.executable, os.path.join(REPO, "tools",
                                                  "make_fixture_dataset.py"),
@@ -137,28 +137,59 @@ def test_infer_cli_clean_eval(tmp_path):
 
     from robseg_torch import infer
     infer.main(["--cfg", str(cfg_path), "--no-adversarial",
-                "--n_batches", "1"])
+                "--n_batches", "1", *flags])
     log = (tmp_path / "out" / "sea_eval_log.txt").read_text()
     clean = [ln for ln in log.splitlines()
              if ln.startswith("Clean performance: ")]
     assert len(clean) == 1
     stats = ast.literal_eval(clean[0][len("Clean performance: "):])
-    assert set(stats) == {"mAcc", "aAcc", "mIoU"}
-    assert all(0.0 <= v <= 1.0 for v in stats.values())
     launches = [ln for ln in log.splitlines()
                 if ln.startswith("kernel launches: ")]
+    return stats, json.loads(launches[0][len("kernel launches: "):])
+
+
+def test_infer_cli_clean_eval(tmp_path):
+    """``robseg_torch.infer --no-adversarial`` end to end on the CPU: the
+    full-width UperNet at the VOC crop (473^2), one image."""
+    stats, launches = _cli_clean_eval(tmp_path)
+    assert set(stats) == {"mAcc", "aAcc", "mIoU"}
+    assert all(0.0 <= v <= 1.0 for v in stats.values())
     # CPU tensors never launch a kernel
-    assert json.loads(launches[0][len("kernel launches: "):]) == {
+    assert launches == {
         "convnext_block_fwd": 0, "convnext_block_dx": 0,
         "apgd_linf_step": 0, "confusion_matrix": 0,
         "fpn_concat_conv_fwd": 0, "fpn_concat_conv_dx": 0,
-        "convnext_mlp_fwd": 0, "convnext_mlp_dx": 0}
+        "convnext_mlp_fwd": 0, "convnext_mlp_dx": 0,
+        "convnext_block_fwd_bf16": 0, "convnext_block_dx_bf16": 0,
+        "fpn_concat_conv_fwd_bf16": 0, "fpn_concat_conv_dx_bf16": 0}
 
 
-@pytest.mark.parametrize("flags", ["--msf", "--shard", "--fused",
-                                   "--precision bf16"])
+def test_infer_cli_bf16_clean_eval(tmp_path):
+    """``--precision bf16`` end to end on the CPU (bf16 parameters and
+    activations through the plain versions); it replaces the refusal this
+    flag met before the bf16 path was ported."""
+    stats, launches = _cli_clean_eval(tmp_path, "--precision", "bf16")
+    assert set(stats) == {"mAcc", "aAcc", "mIoU"}
+    assert all(0.0 <= v <= 1.0 for v in stats.values())
+    assert not any(launches.values())
+
+
+@pytest.mark.parametrize("flags", ["--msf", "--shard", "--fused"])
 def test_infer_refuses_unported_flags(flags, capsys):
     from robseg_torch import infer
     with pytest.raises(SystemExit):
         infer.parse_args(["--cfg", "x.yaml", *flags.split()])
     assert "later slice" in capsys.readouterr().err
+
+
+def test_infer_refuses_f32_precision(capsys):
+    """``--precision f32`` is a parser error, as in the JAX CLI with its
+    block kernel (tools/infer.py:93-100): the kernel's matmul operands are
+    bf16."""
+    from robseg_torch import infer
+    with pytest.raises(SystemExit):
+        infer.parse_args(["--cfg", "x.yaml", "--precision", "f32"])
+    err = capsys.readouterr().err
+    assert "rounds its matmul operands to bf16" in err
+    assert "cannot honor --precision f32" in err
+    assert "--precision default" in err
