@@ -1,7 +1,8 @@
 """Smoke run of robseg_torch on one NVIDIA GPU: the SEA main path, the
-fused-variant attack path (MLP-tail and FPN concat-conv kernels), and the
+fused-variant attack path (MLP-tail and FPN concat-conv kernels), the
 ``--precision bf16`` path (the bf16 I/O forms of the block and FPN
-kernels).
+kernels), and the SEA path of the Segmenter-ViT and PSPNet/DeepLab
+families (the APGD-step and confusion kernels).
 
     python3 chip_smoke.py
 
@@ -27,6 +28,10 @@ result line):
      one PyTorch library call that computes the same function where there
      is one (for the MLP tail: its products, one torch.matmul each at the
      mode's operand precision), and the card's bound for the work;
+     The confusion kernel at 16 x 512^2 with K = 21 and 151, random and
+     blocky (32 x 32 regions) labels, summed and per image: bit for bit
+     against its plain version, its first design and torch.bincount, with
+     the times of all four and the two kernels' own device times;
   2b. (TF32 off) the bf16 I/O forms of the block pair (the four stages and
      2 x 119 x 119 x 96) and the FPN pair (4 x (16, 128, 128, 512)): each
      bit for bit equal to its float32 form on the upcast inputs with the
@@ -42,6 +47,13 @@ result line):
      unfused model;
   3c. (TF32 off) the same for the bf16 main-path model
      (``ModelBundle(..., "bf16")``), float32 logits;
+  3d. (TF32 off) each new family's model at full width (Segmenter
+     ViT-S/16 with 151 classes on 473^2; PSPNet, PSPNet-DDCAT, DeepLabV3
+     and DeepLabV3-DDCAT with 21 classes on 257^2), batch 1: logits and
+     the input gradient of sum(mask-ce-avg) on the card against the same
+     module on the CPU, in float32 and float64, at most 1e-3 of the
+     largest entry (the ResNet models' float32 gradient: cosine >= 0.9999,
+     see ``phase_family_vs_cpu``);
   4. APGD on the main path at batch 16, 512^2 (mask-ce-avg, tracking
      ce-avg, random start) for 20 and for 4 iterations: whole-run and
      marginal step*imgs/s and peak memory;
@@ -70,8 +82,21 @@ result line):
      below where a random-init model falls to ~0 accuracy), under strict
      float32 (TF32 off), the default numerics and bf16; the default model
      scores every mode's adversarial examples; prints the aAcc and mIoU
-     deltas of bf16 against default and of default against strict.
-Then one JSON line of per-kernel results, and the last line
+     deltas of bf16 against default and of default against strict;
+  9. the families' path, counted from zero: APGD at batch 16 (as in 4) on
+     Segmenter ViT-S/16 (512^2, 151 classes) and PSPNet-R50 (473^2, 21
+     classes) under default and bf16 and on Segmenter-SAM (ViT-B/16) under
+     default, then the SEA CLI with configs/voc_pspnet.yaml on the VOC
+     fixture and with configs/ade20k_segmenter.yaml (bf16) on an ADE20K
+     fixture tree (``fixture_ade``), eps 4 and 8, each JSON checked; the
+     APGD-step and confusion kernels must have launched;
+  9p. a torch.profiler account of one iteration's work on each of those
+     models (forward, input gradient, APGD step), by the PyTorch op that
+     launched each kernel: attention matmuls, softmax, other matmuls
+     (linear layers, resizes), cuDNN convolutions, elementwise work, norms
+     and the loss, the APGD step; and the idle share.
+Each phase prints its seconds. Then one JSON line of per-kernel results,
+and the last line
 ``{"ok": true, "device": {...}}``.
 
 The torch.profiler splits (per kernel, per kind of work) only divide time
@@ -139,6 +164,7 @@ import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 BATCH, HW, N_CLS = 16, 512, 21
+N_ADE = 151  # ADE20K's classes
 EPS = 8 / 255
 REPLACES = {
     "convnext_block_fwd": "robseg_tpu/kernels/convnext_block.py:427 "
@@ -178,6 +204,9 @@ MAIN_PATH = ("convnext_block_fwd", "convnext_block_dx", "apgd_linf_step",
 FUSED_PATH = ("fpn_concat_conv_fwd", "fpn_concat_conv_dx",
               "convnext_mlp_fwd", "convnext_mlp_dx")
 BF16_PATH = tuple(k + "_bf16" for k in BF16_FORMS)
+# the Segmenter and PSPNet/DeepLab families run no kernel of their own;
+# their SEA path runs these two
+FAMILIES_PATH = ("apgd_linf_step", "confusion_matrix")
 PROBE_ITERS = 50  # tools/bench_bf16.py's n_iter
 FUSED_MODES = ("residual", "recompute", "residual_bf16", "recompute_bf16")
 HBM_BYTES_PER_S = 3.35e12
@@ -338,7 +367,7 @@ def print_split(label: str, fn) -> dict:
 
 
 def phase_kernels(dev, results):
-    from robseg_torch.kernels import apgd_step, confusion
+    from robseg_torch.kernels import apgd_step
     from robseg_torch.kernels import convnext_block as cb
     rng = np.random.default_rng(0)
     torch.manual_seed(0)
@@ -443,41 +472,97 @@ def phase_kernels(dev, results):
                                  "plain_ms": t[1], "bound_ms": ab[0],
                                  "bound_by": ab[1], "library_ms": None}
 
-    tgt = torch.randint(0, N_CLS, (BATCH, HW, HW), device=dev)
-    tgt[torch.rand(tgt.shape, device=dev) < 0.05] = -1
-    pred = torch.where(torch.rand(tgt.shape, device=dev) < 0.5, tgt,
-                       torch.randint(0, N_CLS, tgt.shape, device=dev))
-    pred = torch.where(tgt == -1, -1, pred)
-    # the library yardstick: one torch.bincount of the precomputed t*K+p
-    # index of the counted pixels
-    idx = (tgt * N_CLS + pred)[tgt != -1]
-    lib_ms = cuda_ms(lambda: torch.bincount(idx, minlength=N_CLS * N_CLS))
-    if not torch.equal(torch.bincount(idx, minlength=N_CLS * N_CLS).view(
-            N_CLS, N_CLS).float(), confusion.confusion_matrix_plain(
-                pred, tgt, num_classes=N_CLS)):
-        raise AssertionError("confusion: bincount yardstick differs")
-    # pred and target int64 in, the K x K int32 histogram out
-    cb_ = bound(16 * tgt.numel() + 4 * N_CLS * N_CLS, {"f32": 0})
-    times = []
-    for per_image in (False, True):
-        kw = dict(num_classes=N_CLS, per_image=per_image)
-        got = confusion.confusion_matrix_cuda(pred, tgt, **kw)
-        want = confusion.confusion_matrix_plain(pred, tgt, **kw)
-        if not torch.equal(got, want):
-            raise AssertionError(f"confusion (per_image={per_image}) "
-                                 "differs from plain")
-        times.append((cuda_ms(lambda: confusion.confusion_matrix_cuda(
-            pred, tgt, **kw)), cuda_ms(
-                lambda: confusion.confusion_matrix_plain(pred, tgt, **kw))))
-        print(f"confusion_matrix (16,512,512) K=21 per_image={per_image}: "
-              f"exact, kernel {times[-1][0]:.3f} ms, plain "
-              f"{times[-1][1]:.3f} ms", flush=True)
-    print(f"confusion_matrix bound {cb_[0]:.4f} ms ({cb_[1]}), library "
-          f"(torch.bincount) {lib_ms:.3f} ms", flush=True)
-    results["confusion_matrix"] = {"max_abs_err": 0.0, "ms": times[0][0],
-                                   "plain_ms": times[0][1],
-                                   "bound_ms": cb_[0], "bound_by": cb_[1],
-                                   "library_ms": lib_ms}
+    phase_confusion(dev, results)
+
+
+def fmt_ms(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
+def fmt_share(bound_ms, ms) -> str:
+    return "not measured" if ms is None else f"{bound_ms / ms:.1%}"
+
+
+def label_maps(shape, k, blocky, dev, seed):
+    """(pred, target) int64 label maps on the card: independent random
+    classes, or piecewise-constant 32 x 32 regions (as in real label maps,
+    where neighbouring pixels share a (target, pred) bin); pred equals
+    target on about half of the pixels (regions), and 5% of the pixels
+    (regions) are ignored (-1 in both, as SEA masks its predictions)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    b, h, w = shape
+
+    def draw(hi):
+        if not blocky:
+            return torch.randint(0, hi, shape, device=dev, generator=g)
+        small = torch.randint(0, hi, (b, h // 32 + 1, w // 32 + 1),
+                              device=dev, generator=g)
+        return small.repeat_interleave(32, 1).repeat_interleave(
+            32, 2)[:, :h, :w].contiguous()
+    tgt = draw(k)
+    pred = torch.where(draw(2) == 0, tgt, draw(k))
+    ign = draw(20) == 0
+    return pred.masked_fill(ign, -1), tgt.masked_fill(ign, -1)
+
+
+def phase_confusion(dev, results):
+    """The confusion kernel against its plain version, bit for bit, at the
+    SEA batch (16 x 512^2): K = 21 and 151, random and blocky labels,
+    summed and per image; times of the kernel, of its first design
+    (``confusion_matrix_v1_cuda``), of the plain version and of one
+    torch.bincount of the precomputed bin index, and the bytes bound."""
+    from robseg_torch.kernels import confusion as cf
+    cases = []
+    for seed, (k, blocky) in enumerate(((N_CLS, False), (N_CLS, True),
+                                        (N_ADE, False), (N_ADE, True))):
+        pred, tgt = label_maps((BATCH, HW, HW), k, blocky, dev, seed)
+        for per_image in (False, True):
+            kw = dict(num_classes=k, per_image=per_image)
+            want = cf.confusion_matrix_plain(pred, tgt, **kw)
+            got = cf.confusion_matrix_cuda(pred, tgt, **kw)
+            old = cf.confusion_matrix_v1_cuda(pred, tgt, **kw)
+            # the library yardstick: one torch.bincount of the precomputed
+            # (image,) t * K + p index of the counted pixels
+            img = torch.arange(BATCH, device=dev).view(BATCH, 1, 1)
+            idx = (tgt * k + pred + (img * k * k if per_image else 0))[
+                tgt != -1]
+            n_bins = want.numel()
+            lib = torch.bincount(idx, minlength=n_bins)
+            if not (torch.equal(got, want) and torch.equal(old, want)
+                    and torch.equal(lib.view(want.shape).float(), want)):
+                raise AssertionError(f"confusion K={k} blocky={blocky} "
+                                     f"per_image={per_image}: kernel, first "
+                                     "design or bincount differs from plain")
+            new = lambda: cf.confusion_matrix_cuda(pred, tgt, **kw)  # noqa
+            v1 = lambda: cf.confusion_matrix_v1_cuda(pred, tgt, **kw)  # noqa
+            t = [cuda_ms(new), cuda_ms(v1),
+                 cuda_ms(lambda: cf.confusion_matrix_plain(pred, tgt, **kw)),
+                 cuda_ms(lambda: torch.bincount(idx, minlength=n_bins))]
+            # each histogram kernel's own device time (torch.profiler):
+            # the CUDA-event times above include the wrapper's host work
+            dt = [sum(ms for name, ms, _ in kernel_split(fn)
+                      if "confusion" in name) or None for fn in (new, v1)]
+            # pred and target int64 in, the float32 histogram out
+            bms, bby = bound(16 * tgt.numel() + 4 * n_bins, {"f32": 0})
+            labels = "blocky" if blocky else "random"
+            print(f"confusion_matrix (16,512,512) K={k} {labels} per_image="
+                  f"{per_image}: exact (kernel, first design, bincount), "
+                  f"kernel {t[0]:.4f} ms (device {fmt_ms(dt[0])}), first "
+                  f"design {t[1]:.4f} ms (device {fmt_ms(dt[1])}), plain "
+                  f"{t[2]:.3f} ms, library (torch.bincount) {t[3]:.4f} ms, "
+                  f"bound {bms:.4f} ms ({bby}), share {bms / t[0]:.1%} "
+                  f"(device {fmt_share(bms, dt[0])})", flush=True)
+            cases.append({"k": k, "labels": labels, "per_image": per_image,
+                          "ms": t[0], "device_ms": dt[0], "v1_ms": t[1],
+                          "v1_device_ms": dt[1], "plain_ms": t[2],
+                          "library_ms": t[3], "bound_ms": bms,
+                          "bound_by": bby, "share": bms / t[0]})
+        del pred, tgt, idx
+    head = cases[0]  # K = 21, random labels, summed: the row's numbers
+    results["confusion_matrix"] = {
+        "max_abs_err": 0.0, "cases": cases,
+        **{key: head[key] for key in ("ms", "plain_ms", "library_ms",
+                                      "bound_ms", "bound_by")}}
 
 
 def phase_fpn(dev, results):
@@ -1046,11 +1131,15 @@ def phase_fused_model(dev, weights):
                                  f"{e[3]}, cosine {cos(gk, gf)}")
 
 
-def phase_apgd(dev, logits_fn, n_iter=20, label="main path"):
+def phase_apgd(dev, logits_fn, n_iter=20, label="main path", hw=HW,
+               n_cls=N_CLS) -> dict:
+    """bench.py's protocol at batch 16: whole-run and marginal
+    step*imgs/s of APGD (mask-ce-avg tracking ce-avg, random start) from
+    runs of ``n_iter`` and 4 iterations, and the peak memory."""
     from robseg_torch.attacks.apgd import apgd_attack
     g = torch.Generator(device=dev).manual_seed(0)
-    x = torch.rand((BATCH, 3, HW, HW), device=dev, generator=g)
-    y = torch.randint(0, N_CLS, (BATCH, HW, HW), device=dev, generator=g)
+    x = torch.rand((BATCH, 3, hw, hw), device=dev, generator=g)
+    y = torch.randint(0, n_cls, (BATCH, hw, hw), device=dev, generator=g)
 
     def run(it):
         res = apgd_attack(logits_fn, x, y, norm="Linf", eps=EPS, n_iter=it,
@@ -1078,11 +1167,14 @@ def phase_apgd(dev, logits_fn, n_iter=20, label="main path"):
     whole = n_iter * BATCH / ((t2 - t1) / reps)
     per_iter = ((t2 - t1) - (t1 - t0)) / reps / (n_iter - 4)
     peak = torch.cuda.max_memory_allocated(dev)
-    print(f"apgd {label} (16,3,512,512) mask-ce-avg/ce-avg rs: whole-run "
-          f"{whole:.2f} step*imgs/s, marginal {BATCH / per_iter:.2f} "
-          f"step*imgs/s ({per_iter * 1e3:.1f} ms/iteration), {n_iter}-iter "
-          f"run {(t2 - t1) / reps:.2f} s, peak memory {peak / 2**30:.2f} "
-          f"GiB, final mean acc {float(res.acc.mean()):.4f}", flush=True)
+    print(f"apgd {label} ({BATCH},3,{hw},{hw}) mask-ce-avg/ce-avg rs: "
+          f"whole-run {whole:.2f} step*imgs/s, marginal "
+          f"{BATCH / per_iter:.2f} step*imgs/s ({per_iter * 1e3:.1f} "
+          f"ms/iteration), {n_iter}-iter run {(t2 - t1) / reps:.2f} s, peak "
+          f"memory {peak / 2**30:.2f} GiB, final mean acc "
+          f"{float(res.acc.mean()):.4f}", flush=True)
+    return {"whole": whole, "marginal": BATCH / per_iter,
+            "ms_per_iteration": per_iter * 1e3, "peak_gib": peak / 2**30}
 
 
 def kernel_kind(name: str, tail: bool = False) -> str:
@@ -1108,7 +1200,8 @@ def kernel_kind(name: str, tail: bool = False) -> str:
     if any(k in low for k in ("cudnn", "conv", "dgrad", "wgrad", "fprop",
                               "implicit")):
         return "convolution (cuDNN)"
-    if "gemm" in low or "cutlass" in low:
+    # cuBLAS's Hopper GEMMs are also named nvjet_...
+    if "gemm" in low or "cutlass" in low or "nvjet" in low:
         return "matmul (cuBLAS)"
     if "apgd" in low or "confusion" in low:
         return "APGD step, confusion"
@@ -1166,31 +1259,64 @@ def fixture_voc(tmp: str) -> str:
     return root
 
 
-def phase_cli(tmp: str, precision: str = "default") -> dict:
+def fixture_ade(tmp: str) -> str:
+    """An 8-image ADE20K-layout tree (ADEChallengeData2016/images/
+    validation/*.jpg and annotations/validation/*.png), 640 x 512 random
+    images over piecewise-constant labels 0..150."""
+    from PIL import Image
+    root = os.path.join(tmp, "ade")
+    base = os.path.join(root, "ADEChallengeData2016")
+    img_dir = os.path.join(base, "images", "validation")
+    ann_dir = os.path.join(base, "annotations", "validation")
+    if os.path.isdir(img_dir):
+        return root
+    os.makedirs(img_dir)
+    os.makedirs(ann_dir)
+    for i in range(8):
+        rng = np.random.default_rng(100 + i)
+        small = rng.integers(0, N_ADE, (8, 10)).astype(np.uint8)
+        lab = np.kron(small, np.ones((64, 64), np.uint8))[:512, :640]
+        img = (rng.random((512, 640, 3)) * 128 + (lab[..., None] % 64) * 2)
+        stem = f"ADE_val_{i:08d}"
+        Image.fromarray(img.clip(0, 255).astype(np.uint8)).save(
+            os.path.join(img_dir, stem + ".jpg"))
+        Image.fromarray(lab).save(os.path.join(ann_dir, stem + ".png"))
+    return root
+
+
+def phase_cli(tmp: str, precision: str = "default",
+              cfg_name: str = "rig_voc_demo.yaml", fixture=fixture_voc,
+              eps=(8,), n_iter: int = 10) -> dict:
+    """The SEA CLI (``python -m robseg_torch.infer``) on a fixture tree
+    with a config from configs/ (its ROOT and SAVE_DIR pointed into
+    ``tmp``), one batch, every eps of ``eps``: one finite JSON a eps whose
+    worst case is at most each loss's mIoU, and every adversarial batch
+    inside its eps ball. Returns the kernel launch counts it printed."""
     import yaml
-    root = fixture_voc(tmp)
-    with open(os.path.join(REPO, "configs", "rig_voc_demo.yaml")) as f:
+    root = fixture(tmp)
+    with open(os.path.join(REPO, "configs", cfg_name)) as f:
         cfg = yaml.safe_load(f)
     cfg["DATASET"]["ROOT"] = root
-    cfg["SAVE_DIR"] = os.path.join(tmp, f"out_{precision}")
-    cfg_path = os.path.join(tmp, f"cfg_{precision}.yaml")
+    tag = f"{os.path.splitext(os.path.basename(cfg_name))[0]}_{precision}"
+    cfg["SAVE_DIR"] = os.path.join(tmp, f"out_{tag}")
+    cfg_path = os.path.join(tmp, f"cfg_{tag}.yaml")
     with open(cfg_path, "w") as f:
         yaml.safe_dump(cfg, f)
     t0 = time.time()
     p = subprocess.run([sys.executable, "-m", "robseg_torch.infer", "--cfg",
-                        cfg_path, "--eps", "8", "--n_iter", "10",
-                        "--n_batches", "1", "--precision", precision],
+                        cfg_path, "--eps", ",".join(f"{e:g}" for e in eps),
+                        "--n_iter", str(n_iter), "--n_batches", "1",
+                        "--precision", precision],
                        cwd=REPO, capture_output=True, text=True)
     if p.returncode != 0:
         raise RuntimeError(f"SEA CLI exited {p.returncode}:\n"
                            f"{p.stdout[-4000:]}\n{p.stderr[-4000:]}")
     out = p.stdout
-    outs = [f for f in os.listdir(cfg["SAVE_DIR"])
-            if f.startswith("worse_SEA_") and f.endswith(".json")]
-    if len(outs) != 1:
-        raise AssertionError(f"expected one worse_SEA_*.json, got {outs}")
-    with open(os.path.join(cfg["SAVE_DIR"], outs[0])) as f:
-        res = json.load(f)
+    outs = sorted(f for f in os.listdir(cfg["SAVE_DIR"])
+                  if f.startswith("worse_SEA_") and f.endswith(".json"))
+    if len(outs) != len(eps):
+        raise AssertionError(f"expected {len(eps)} worse_SEA_*.json, got "
+                             f"{outs}")
 
     def numbers(v):
         if isinstance(v, dict):
@@ -1198,31 +1324,39 @@ def phase_cli(tmp: str, precision: str = "default") -> dict:
         if isinstance(v, list):
             return [n for u in v for n in numbers(u)]
         return [float(v)]
-    if not all(math.isfinite(n) for n in numbers(res)):
-        raise AssertionError(f"non-finite number in {outs[0]}")
-    if res["final_miou"] > min(res["loss-wise_miou"]) + 1e-6:
-        raise AssertionError("final_miou above a loss-wise mIoU")
+    results = []
+    for name in outs:
+        with open(os.path.join(cfg["SAVE_DIR"], name)) as f:
+            res = json.load(f)
+        if not all(math.isfinite(n) for n in numbers(res)):
+            raise AssertionError(f"non-finite number in {name}")
+        if res["final_miou"] > min(res["loss-wise_miou"]) + 1e-6:
+            raise AssertionError(f"{name}: final_miou above a loss-wise mIoU")
+        results.append(res)
     checks = re.findall(r"batch \d+: max Linf pert: ([0-9.e+-]+), nan in "
                         r"imgs: (\d+), max in imgs: ([0-9.e+-]+), min in "
                         r"imgs: ([0-9.e+-]+)", out)
-    if len(checks) != 3:
-        raise AssertionError(f"expected 3 check_imgs lines, got {checks}")
-    for pert, nan, hi, lo in checks:
-        # printed with 5 decimals
-        if not (float(pert) <= EPS + 1e-5 and int(nan) == 0
+    if len(checks) != 3 * len(eps):
+        raise AssertionError(f"expected {3 * len(eps)} check_imgs lines, got "
+                             f"{checks}")
+    for i, (pert, nan, hi, lo) in enumerate(checks):
+        # three losses a eps, in the sweep's order; printed with 5 decimals
+        if not (float(pert) <= eps[i // 3] / 255 + 1e-5 and int(nan) == 0
                 and float(hi) <= 1.0 and float(lo) >= 0.0):
-            raise AssertionError(f"adversarial images out of bounds: "
-                                 f"{pert} {nan} {hi} {lo}")
+            raise AssertionError(f"adversarial images out of bounds at eps "
+                                 f"{eps[i // 3]}/255: {pert} {nan} {hi} "
+                                 f"{lo}")
     m = re.search(r"^kernel launches: (\{.*\})$", out, re.M)
     if m is None:
         raise AssertionError("SEA CLI printed no kernel launch counts")
     counts = json.loads(m.group(1))
-    print(f"SEA CLI --precision {precision} (8 VOC fixture images at 473^2, "
-          f"batch 8, n_iter 10) in "
-          f"{time.time() - t0:.1f} s: clean {res['clean']}, worst_Acc "
-          f"{res['worst_Acc']:.4f}, final_miou {res['final_miou']:.4f}, "
-          f"loss-wise mIoU {res['loss-wise_miou']}; max Linf pert "
-          f"{max(float(c[0]) for c in checks):.5f} <= {EPS:.5f}; "
+    print(f"SEA CLI {cfg_name} --precision {precision} (8 fixture images, "
+          f"one batch, n_iter {n_iter}, eps {list(eps)}/255) in "
+          f"{time.time() - t0:.1f} s: " + "; ".join(
+              f"eps {e:g}: clean {r['clean']}, worst_Acc {r['worst_Acc']:.4f}"
+              f", final_miou {r['final_miou']:.4f}, loss-wise mIoU "
+              f"{r['loss-wise_miou']}" for e, r in zip(eps, results))
+          + f"; max Linf pert {max(float(c[0]) for c in checks):.5f}; "
           f"launches {counts}", flush=True)
     return counts
 
@@ -1317,6 +1451,253 @@ def phase_probe(dev, tmp, fns):
           f"{time.time() - t0:.1f} s: {json.dumps(out)}", flush=True)
 
 
+def family_module(name: str, backbone: str, n_cls: int, crop: int):
+    """A model of the Segmenter or PSPNet/DeepLab families at full width
+    with seeded random weights, as the CLI builds it for a ``crop`` x
+    ``crop`` config (the crop is the Segmenter's native grid)."""
+    from robseg_torch.models import build_model as build
+    torch.manual_seed(0)
+    return build(name, backbone, n_cls, image_size=(crop, crop))
+
+
+# (model, backbone, classes, config crop, checked input side): each family
+# at full width; the ResNet models on 257^2 and the Segmenter on 473^2 (the
+# pad path and the position embedding's resize), so each CPU reference
+# takes seconds
+CPU_CHECKS = (("SegMenter", "vit_small_patch16_224", N_ADE, 512, 473),
+              ("PSPNet", "ResNet-50", N_CLS, 473, 257),
+              ("PSPNet_DDCAT", "ResNet-50", N_CLS, 473, 257),
+              ("DeepLabV3", "ResNet-50", N_CLS, 473, 257),
+              ("DeepLabV3_DDCAT", "ResNet-50", N_CLS, 473, 257))
+
+
+def mask_ce_run(fn, x, y):
+    """(logits, input gradient of sum(mask-ce-avg)) of a logits function."""
+    from robseg_torch.ops.losses import ATTACK_CRITERIA
+    xg = x.clone().requires_grad_(True)
+    logits = fn(xg)
+    loss = ATTACK_CRITERIA["mask-ce-avg"](logits, y).sum()
+    return logits.detach(), torch.autograd.grad(loss, xg)[0]
+
+
+def cosine(a, b) -> float:
+    return float(torch.nn.functional.cosine_similarity(
+        a.flatten().double(), b.flatten().double(), dim=0))
+
+
+def phase_family_vs_cpu(dev):
+    """(TF32 off) Each new family's model at full width, batch 1: logits
+    and the input gradient of sum(mask-ce-avg) on the card against the
+    same module on the CPU, the largest error as a share of the largest
+    entry, in float32 and in float64.
+
+    Gates: float32 logits <= 1e-3; float64 logits and gradient <= 1e-3;
+    the float32 gradient <= 1e-3 for the Segmenter, and cosine >= 0.9999
+    for the ResNet models. Their float32 input gradient routes through
+    ReLU gates and max pools that a last-bit difference can flip, and each
+    flip deep in the net moves a patch of the gradient: measured on this
+    card at 257^2, the CPU's own float32 gradient differs from the float64
+    one by up to 2.5e-2 of its largest entry (PSPNet), as much as the
+    card's does, while the two devices agree to ~1e-15 in float64. Each
+    float32 gradient's error against the CPU's float64 one is printed."""
+    import copy
+    from robseg_torch.models import ModelBundle
+    for name, backbone, n_cls, crop, side in CPU_CHECKS:
+        module = family_module(name, backbone, n_cls, crop)
+        fn = ModelBundle(module).logits_fn
+        g = torch.Generator().manual_seed(4)
+        x = torch.rand((1, 3, side, side), generator=g)
+        t0 = time.time()
+        with torch.no_grad():
+            lc = fn(x)
+        # labels: the CPU argmax on about half the pixels whose top-2 gap
+        # is well above the bound (both devices agree on the mask there),
+        # else the lowest-scoring class
+        top2 = lc.topk(2, dim=1).values
+        sure = (top2[:, 0] - top2[:, 1]) > 2e-3 * float(lc.abs().max())
+        pick = sure & (torch.rand(sure.shape, generator=g) < 0.5)
+        lab = torch.where(pick, lc.argmax(1), lc.argmin(1))
+        lc, gc = mask_ce_run(fn, x, lab)
+        m64 = copy.deepcopy(module).double()
+        fn64 = ModelBundle(m64).logits_fn
+        l64, g64 = mask_ce_run(fn64, x.double(), lab)
+        t_cpu = time.time() - t0
+        module.to(dev)
+        m64.to(dev)
+        lk, gk = mask_ce_run(fn, x.to(dev), lab.to(dev))
+        l64k, g64k = mask_ce_run(fn64, x.double().to(dev), lab.to(dev))
+        lk, gk, l64k, g64k = (t.cpu() for t in (lk, gk, l64k, g64k))
+        e = {"logits": rel_max_err(lk, lc), "grad": rel_max_err(gk, gc),
+             "logits64": rel_max_err(l64k, l64),
+             "grad64": rel_max_err(g64k, g64)}
+        cos = cosine(gk, gc)
+        e_ref = (rel_max_err(gk.double(), g64), rel_max_err(gc.double(), g64))
+        print(f"{name} {backbone} K={n_cls} (1,3,{side},{side}) card vs CPU "
+              f"(TF32 off): float32 logits max err {e['logits']:.3e} of "
+              f"max|logit| {float(lc.abs().max()):.3e}, input-grad max err "
+              f"{e['grad']:.3e} of its largest entry (cosine {cos:.8f}; vs "
+              f"the CPU's float64 gradient: card {e_ref[0]:.3e}, CPU "
+              f"{e_ref[1]:.3e}); float64 logits "
+              f"{e['logits64']:.3e}, input grad {e['grad64']:.3e}; "
+              f"mask-ce-avg pixels {int(pick.sum())}; CPU references "
+              f"{t_cpu:.1f} s", flush=True)
+        grad_ok = (e["grad"] <= 1e-3 if name == "SegMenter"
+                   else cos >= 0.9999)
+        if not (all(math.isfinite(v) for v in e.values()) and grad_ok
+                and max(e["logits"], e["logits64"], e["grad64"]) <= 1e-3):
+            raise AssertionError(f"{name}: card vs CPU {e}, cosine {cos}")
+        del module, m64, fn, fn64
+        torch.cuda.empty_cache()
+
+
+# the families' attack rates: (label, model, backbone, classes, side,
+# precisions); Segmenter-ViT-S/16 on ADE20K, PSPNet-R50 on VOC, the
+# Segmenter-SAM (ViT-B/16) once
+RATE_MODELS = (
+    ("segmenter-vit-s16", "SegMenter", "vit_small_patch16_224", N_ADE, 512,
+     ("default", "bf16")),
+    ("pspnet-r50", "PSPNet", "ResNet-50", N_CLS, 473, ("default", "bf16")),
+    ("segmenter-sam-vit-b16", "SegMenter", "vit_base_patch16_SAM", N_ADE,
+     512, ("default",)))
+
+
+MATMUL_OPS = ("aten::bmm", "aten::mm", "aten::addmm", "aten::baddbmm")
+
+
+def op_kind(key: str, shapes, attn_batches) -> str:
+    """The kind of work of a profiled PyTorch op that launched kernels
+    itself: the attention products are the ``aten::bmm`` calls whose batch
+    is batch x heads (forward and backward); the attention's softmax and
+    its backward; the convolutions (cuDNN's layout conversions included);
+    the other matmuls (linear layers, the resizes' interpolation
+    products); everything else is elementwise work, norms and the loss."""
+    if key in ("aten::_softmax", "aten::_softmax_backward_data"):
+        return "softmax"
+    if "convolution" in key:
+        return "convolution (cuDNN)"
+    if key in MATMUL_OPS:
+        if key == "aten::bmm" and shapes and shapes[0] and \
+                shapes[0][0] in attn_batches:
+            return "attention matmuls"
+        return "other matmuls (linear, resize)"
+    return "elementwise, norms, loss"
+
+
+def op_split(fn, reps: int, attn_batches, tries: int = 3):
+    """Device ms per call by kind (``op_kind``; the APGD-step kernel,
+    launched outside any PyTorch op, by its name), the kernels' total ms
+    per call, the wall ms per call and the kernels' rows [(ms, name,
+    launches) per call], from one torch.profiler window with shapes over
+    ``reps`` calls, taken again while it holds no device time; ({}, 0,
+    wall, []) if every window was empty."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / reps
+        kinds, total, rows = {}, 0.0, []
+        for ev in prof.key_averages(group_by_input_shape=True):
+            us = getattr(ev, "self_device_time_total", None)
+            if us is None:
+                us = ev.self_cuda_time_total
+            if us <= 0:
+                continue
+            ms = us / reps / 1e3
+            if str(ev.device_type).endswith("CUDA"):   # a kernel's row
+                total += ms
+                rows.append((ms, short_name(ev.key), ev.count / reps))
+                if "apgd" in ev.key.lower():
+                    kinds["APGD step"] = kinds.get("APGD step", 0.0) + ms
+                continue
+            kind = op_kind(ev.key, getattr(ev, "input_shapes", None),
+                           attn_batches)
+            kinds[kind] = kinds.get(kind, 0.0) + ms
+        if total > 0:
+            return kinds, total, wall, sorted(rows, reverse=True)
+        print("torch.profiler window with no device time", flush=True)
+    return {}, 0.0, wall, []
+
+
+def phase_family_profile(dev, logits_fn, label, side, n_cls, attn_batches,
+                         reps: int = 2):
+    """Where one APGD iteration's device time goes on a family model: a
+    forward, the input gradient and the APGD-step kernel at batch 16,
+    device time by kind (``op_split``) and the idle share."""
+    from robseg_torch.kernels import apgd_linf_step
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.rand((BATCH, 3, side, side), device=dev, generator=g)
+    y = torch.randint(0, n_cls, (BATCH, side, side), device=dev, generator=g)
+    step = torch.full((BATCH, 1, 1, 1), 2 * EPS, device=dev)
+
+    def one():
+        _, grad = mask_ce_run(logits_fn, x, y)
+        return apgd_linf_step(x, x, x, grad, step, EPS, 0.75)
+
+    one()
+    torch.cuda.synchronize()
+    kinds, busy, wall, rows = op_split(one, reps, attn_batches)
+    if not busy:
+        print(f"{label} profile: {wall:.1f} ms wall; time by kind not "
+              "measured (torch.profiler recorded no device time in 3 "
+              "windows)", flush=True)
+        return
+    print(f"{label} profile, one forward + input gradient + APGD step at "
+          f"batch {BATCH}: {wall:.1f} ms wall, {busy:.1f} ms of kernels, idle "
+          f"share {max(0.0, 1 - busy / wall):.4f}; by kind (of "
+          f"{sum(kinds.values()):.1f} ms attributed): " + "; ".join(
+              f"{k} {v:.2f} ms ({v / busy:.1%})" for k, v in
+              sorted(kinds.items(), key=lambda kv: -kv[1])), flush=True)
+    print(f"{label} profile, top kernels: " + "; ".join(
+        f"{n} {ms:.2f} ms x{c:g}" for ms, n, c in rows[:10]), flush=True)
+
+
+def phase_family_rates(dev):
+    """APGD on the families' models under each precision (phase_apgd's
+    protocol). Their profiles (``phase_family_profiles``) run after the
+    path's launch counts are read."""
+    from robseg_torch.models import ModelBundle
+    for label, name, backbone, n_cls, side, precisions in RATE_MODELS:
+        module = family_module(name, backbone, n_cls, side).to(dev)
+        for precision in precisions:
+            fn = ModelBundle(module, precision).logits_fn
+            phase_apgd(dev, fn, label=f"{label} {precision}", hw=side,
+                       n_cls=n_cls)
+        del module, fn
+        torch.cuda.empty_cache()
+
+
+def phase_family_profiles(dev):
+    """``phase_family_profile`` for each model and precision of the rates;
+    the attention products are the ``aten::bmm`` calls of batch 16 x the
+    encoder's or the decoder's heads."""
+    from robseg_torch.models import ModelBundle
+    from robseg_torch.models import SEGMENTER_VARIANTS
+    for label, name, backbone, n_cls, side, precisions in RATE_MODELS:
+        module = family_module(name, backbone, n_cls, side).to(dev)
+        heads = ({BATCH * SEGMENTER_VARIANTS[backbone]["n_heads"],
+                  BATCH * (SEGMENTER_VARIANTS[backbone]["d_model"] // 64)}
+                 if name == "SegMenter" else set())
+        for precision in precisions:
+            fn = ModelBundle(module, precision).logits_fn
+            phase_family_profile(dev, fn, f"{label} {precision}", side,
+                                 n_cls, heads)
+        del module, fn
+        torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def timed(name: str):
+    """Print a phase's wall seconds when it ends."""
+    t0 = time.time()
+    yield
+    print(f"phase {name}: {time.time() - t0:.1f} s", flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -1343,55 +1724,88 @@ def main():
     bundle = build_model(dev)
     weights = bundle.module.state_dict()
     with strict_float32():
-        phase_kernels(dev, results)
-        phase_fpn(dev, results)
-        phase_mlp(dev, results)
-        phase_bf16_kernels(dev, results)
-        phase_model(dev, bundle.logits_fn)
-        phase_fused_model(dev, weights)
-        phase_model(dev, fused_model(dev, weights, "bf16"),
-                    label="bf16 model", atol=5e-2)
+        with timed("2 kernels"):
+            phase_kernels(dev, results)
+        with timed("2 fpn"):
+            phase_fpn(dev, results)
+        with timed("2 mlp"):
+            phase_mlp(dev, results)
+        with timed("2b bf16 kernels"):
+            phase_bf16_kernels(dev, results)
+        with timed("3 model"):
+            phase_model(dev, bundle.logits_fn)
+        with timed("3b fused model"):
+            phase_fused_model(dev, weights)
+        with timed("3c bf16 model"):
+            phase_model(dev, fused_model(dev, weights, "bf16"),
+                        label="bf16 model", atol=5e-2)
+        with timed("3d families card vs CPU"):
+            phase_family_vs_cpu(dev)
 
     # each path counted from zero: the main path (APGD and the SEA CLI),
     # the fused-variant path (APGD and its bench entry point), the bf16
-    # path (APGD, the SEA CLI and the bench entry point with bf16)
-    kernels.reset_launch_counts()
-    phase_apgd(dev, bundle.logits_fn)
-    main_counts = kernels.launch_counts()
-    phase_profile(dev, bundle.logits_fn)
-    fused_fn = fused_model(dev, weights, fused_mlp_mode="residual",
-                           fused_head="pallas")
-    kernels.reset_launch_counts()
-    phase_apgd(dev, fused_fn, n_iter=10, label="fused-variant path")
-    fused_counts = kernels.launch_counts()
-    phase_profile(dev, fused_fn, label="fused-variant-path", tail=True)
-    del fused_fn
-    bf16_fn = fused_model(dev, weights, "bf16")
-    kernels.reset_launch_counts()
-    phase_apgd(dev, bf16_fn, label="bf16 main path")
-    bf16_counts = kernels.launch_counts()
-    phase_profile(dev, bf16_fn, label="bf16 main-path")
+    # path (APGD, the SEA CLI and the bench entry point with bf16), the
+    # families' path (APGD on Segmenter and PSPNet, the SEA CLI on them)
+    with timed("4 main path"):
+        kernels.reset_launch_counts()
+        phase_apgd(dev, bundle.logits_fn)
+        main_counts = kernels.launch_counts()
+        phase_profile(dev, bundle.logits_fn)
+    with timed("4b fused-variant path"):
+        fused_fn = fused_model(dev, weights, fused_mlp_mode="residual",
+                               fused_head="pallas")
+        kernels.reset_launch_counts()
+        phase_apgd(dev, fused_fn, n_iter=10, label="fused-variant path")
+        fused_counts = kernels.launch_counts()
+        phase_profile(dev, fused_fn, label="fused-variant-path", tail=True)
+        del fused_fn
+    with timed("4c bf16 path"):
+        bf16_fn = fused_model(dev, weights, "bf16")
+        kernels.reset_launch_counts()
+        phase_apgd(dev, bf16_fn, label="bf16 main path")
+        bf16_counts = kernels.launch_counts()
+        phase_profile(dev, bf16_fn, label="bf16 main-path")
     with tempfile.TemporaryDirectory() as tmp:
-        for precision, counts in (("default", main_counts),
-                                  ("bf16", bf16_counts)):
-            for name, n in phase_cli(tmp, precision).items():
-                counts[name] += n
-        for modes, flags, counts in (
-                (("rs", "recompute_bf16", "head"), (), fused_counts),
-                (("head", "rs"), ("--bf16",), bf16_counts)):
-            for name, n in phase_bench_fused(modes, flags).items():
-                counts[name] += n
-        phase_probe(dev, tmp, {
-            "strict": (bundle.logits_fn, strict_float32),
-            "default": (bundle.logits_fn, contextlib.nullcontext),
-            "bf16": (bf16_fn, contextlib.nullcontext)})
+        with timed("5 SEA CLI"):
+            for precision, counts in (("default", main_counts),
+                                      ("bf16", bf16_counts)):
+                for name, n in phase_cli(tmp, precision).items():
+                    counts[name] += n
+        with timed("6 bench_fused"):
+            for modes, flags, counts in (
+                    (("rs", "recompute_bf16", "head"), (), fused_counts),
+                    (("head", "rs"), ("--bf16",), bf16_counts)):
+                for name, n in phase_bench_fused(modes, flags).items():
+                    counts[name] += n
+        with timed("8 probe"):
+            phase_probe(dev, tmp, {
+                "strict": (bundle.logits_fn, strict_float32),
+                "default": (bundle.logits_fn, contextlib.nullcontext),
+                "bf16": (bf16_fn, contextlib.nullcontext)})
+        del bundle, bf16_fn
+        torch.cuda.empty_cache()
+        with timed("9 families path"):
+            kernels.reset_launch_counts()
+            phase_family_rates(dev)
+            families_counts = kernels.launch_counts()
+            for cfg_name, fixture, precision in (
+                    ("voc_pspnet.yaml", fixture_voc, "default"),
+                    ("ade20k_segmenter.yaml", fixture_ade, "bf16")):
+                for name, n in phase_cli(tmp, precision, cfg_name, fixture,
+                                         eps=(4, 8)).items():
+                    families_counts[name] += n
+    with timed("9p families profiles"):
+        phase_family_profiles(dev)
     print(f"main-path launches: {main_counts}", flush=True)
     print(f"fused-variant-path launches: {fused_counts}", flush=True)
     print(f"bf16-path launches: {bf16_counts}", flush=True)
+    print(f"families-path launches: {families_counts}", flush=True)
     launches = {name: (main_counts if name in MAIN_PATH else
                        fused_counts if name in FUSED_PATH else
                        bf16_counts)[name] for name in REPLACES}
-    missing = [k for k, n in launches.items() if n <= 0]
+    missing = [k for k, n in launches.items() if n <= 0] + [
+        f"{k} (families path)" for k in FAMILIES_PATH
+        if families_counts[k] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on their path: "
                              f"{missing}")
@@ -1399,9 +1813,12 @@ def main():
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],
          "replaces": REPLACES[name], "launches": launches[name],
+         **({"launches_families_path": families_counts[name]}
+            if name in FAMILIES_PATH else {}),
          **{k: results[name][k] for k in ("max_abs_err", "ms", "plain_ms",
                                           "bound_ms", "bound_by",
-                                          "library_ms", "stages", "modes")
+                                          "library_ms", "stages", "modes",
+                                          "cases")
             if k in results[name]}}
         for name in REPLACES]}))
     print(json.dumps({"ok": True, "device": {

@@ -34,6 +34,7 @@ from robseg_torch.config import (dataset_eval_geometry, load_config,
                                  model_display_name, resolve_device)
 from robseg_torch.data import get_segmentation_dataset, simple_eval_loader
 from robseg_torch.models import ModelBundle, build_model
+from robseg_torch.models.vit import resize_pos_embed
 from robseg_torch.utils import Logger, class_balance_weights
 
 SEED = 225  # parity: tools/infer.py:25
@@ -66,15 +67,45 @@ def set_numerics() -> None:
     torch.backends.cudnn.allow_tf32 = True
 
 
-def load_weights(module: torch.nn.Module, ckpt_path: str) -> None:
-    """A reference PyTorch ``.pth`` state_dict loads directly (strict)."""
+# the models whose reference .pth the JAX CLI converts (tools/infer.py:
+# convert_upernet, convert_pspnet, convert_segmenter); it sends the other
+# three names to convert_segmenter, which cannot read them
+PTH_MODELS = ("UperNetForSemanticSegmentation", "PSPNet", "SegMenter")
+
+
+def build_eval_model(cfg, n_cls: int, crop_size) -> torch.nn.Module:
+    """The config's model, as ``tools/infer.py::build_eval_model`` builds
+    it: the crop size is the Segmenter's native grid, PSPNet has the
+    deep-base stem."""
+    backbone = cfg["EVAL"].get("BACKBONE", cfg["MODEL"].get("BACKBONE"))
+    return build_model(cfg["MODEL"]["NAME"], backbone, n_cls,
+                       image_size=crop_size)
+
+
+def load_weights(module: torch.nn.Module, ckpt_path: str,
+                 model_name: str = "UperNetForSemanticSegmentation") -> None:
+    """A reference PyTorch ``.pth`` state_dict loads directly (strict), with
+    the ``module.`` / ``base_model.`` prefixes stripped as the JAX
+    converters strip them; a Segmenter's position embedding is resampled
+    to the model's native grid, as ``convert_vit_encoder`` does."""
     if str(ckpt_path).endswith(".npz"):
         raise NotImplementedError(
-            ".npz (JAX) checkpoints: convert them with "
-            "robseg_torch.convert.upernet_state_dict_from_jax and save a "
-            ".pth; direct .npz loading is a later slice (ROADMAP.md)")
+            ".npz (JAX) checkpoints: convert them with the "
+            "robseg_torch.convert functions and save a .pth; direct .npz "
+            "loading is a later slice (ROADMAP.md)")
+    if model_name not in PTH_MODELS:
+        raise ValueError(
+            f"{model_name}: no .pth loader. The JAX package converts "
+            f"reference checkpoints of {', '.join(PTH_MODELS)} only (its CLI "
+            "hands this name to convert_segmenter, which cannot read it), "
+            "and the port adds none")
     sd = torch.load(ckpt_path, map_location="cpu")
-    sd = {k.replace("module.", ""): v for k, v in sd.items()}
+    sd = {k.replace("module.", "").replace("base_model.", ""): v
+          for k, v in sd.items()}
+    pos = sd.get("encoder.pos_embed")
+    if pos is not None and pos.shape != module.encoder.pos_embed.shape:
+        sd["encoder.pos_embed"] = resize_pos_embed(
+            pos, None, module.encoder.native_grid, module.encoder.num_extra)
     module.load_state_dict(sd, strict=True)
 
 
@@ -126,11 +157,10 @@ def main(argv=None):
 
     np.random.seed(SEED)
     torch.manual_seed(SEED)
-    backbone = test_cfg.get("BACKBONE", cfg["MODEL"].get("BACKBONE"))
-    module = build_model(cfg["MODEL"]["NAME"], backbone, n_cls)
+    module = build_eval_model(cfg, n_cls, crop_size)
     ckpt_path = args.ckpt or test_cfg.get("MODEL_PATH")
     if ckpt_path and os.path.exists(str(ckpt_path)):
-        load_weights(module, ckpt_path)
+        load_weights(module, ckpt_path, cfg["MODEL"]["NAME"])
     else:
         print(f"WARNING: no checkpoint at {ckpt_path!r}; "
               "evaluating random init")

@@ -8,6 +8,12 @@ over pixels where ``t != ignore_label``, ``0 <= t < K`` and ``0 <= p < K``.
 Returns float32 counts, ``(K, K)`` summed over the batch or ``(B, K, K)``
 per image. A CPU tensor takes the plain version; a CUDA tensor launches the
 kernel, and anything the kernel does not take raises.
+
+The kernel writes float32 counts directly when every count stays below
+2^24 (exact in float32, as in the JAX kernel's float32 accumulator), and
+int32 counts, converted after, above that. ``confusion_matrix_v1_cuda``
+launches the kernel's first design, for ``chip_smoke.py``'s comparison
+only; nothing in the package calls it.
 """
 
 from __future__ import annotations
@@ -33,10 +39,12 @@ def confusion_matrix_plain(pred, target, *, num_classes: int,
     return hist.to(torch.float32)
 
 
-def confusion_matrix_cuda(pred, target, *, num_classes: int,
-                          ignore_label: int = -1, per_image: bool = False):
-    """Launch the kernel; pred and target int64 of one shape on one CUDA
-    device, leading dimension the batch."""
+MAX_CLASSES = 238  # one K x K int32 histogram in 227 KB of shared memory
+F32_EXACT = 2 ** 24
+
+
+def _checked(pred, target, num_classes):
+    """pred and target as contiguous, 16-byte aligned (B, P) int64 rows."""
     if not pred.is_cuda:
         raise ValueError(f"confusion_matrix_cuda: pred is on {pred.device}, "
                          "not CUDA")
@@ -47,24 +55,55 @@ def confusion_matrix_cuda(pred, target, *, num_classes: int,
         if t.dtype != torch.int64 or t.device != pred.device:
             raise ValueError(f"confusion_matrix: {name} must be int64 on "
                              f"{pred.device}; got {t.dtype} on {t.device}")
-    if not 1 <= num_classes <= 256:
-        raise ValueError("confusion_matrix: num_classes must be in [1, 256]")
+    if not 1 <= num_classes <= MAX_CLASSES:
+        raise ValueError("confusion_matrix: num_classes must be in "
+                         f"[1, {MAX_CLASSES}]")
     b = pred.shape[0]
-    pred = pred.reshape(b, -1).contiguous()
-    target = target.reshape(b, -1).contiguous()
+    rows = []
+    for t in (pred, target):
+        t = t.reshape(b, -1).contiguous()
+        rows.append(t if t.data_ptr() % 16 == 0 else t.clone())
+    return rows
+
+
+def confusion_matrix_cuda(pred, target, *, num_classes: int,
+                          ignore_label: int = -1, per_image: bool = False):
+    """Launch the kernel; pred and target int64 of one shape on one CUDA
+    device, leading dimension the batch."""
+    pred, target = _checked(pred, target, num_classes)
+    b, n = pred.shape
     k = num_classes
-    shape = (b, k, k) if per_image else (k, k)
-    hist = torch.zeros(shape, dtype=torch.int32, device=pred.device)
+    f32 = b * n < F32_EXACT
+    hist = torch.empty((b, k, k) if per_image else (k, k),
+                       dtype=torch.float32 if f32 else torch.int32,
+                       device=pred.device)
     err = _build.library().robseg_confusion(
-        pred.data_ptr(), target.data_ptr(), hist.data_ptr(), b,
-        pred.shape[1], k, int(ignore_label), 0 if per_image else 1,
+        pred.data_ptr(), target.data_ptr(), hist.data_ptr(), b, n, k,
+        int(ignore_label), 0 if per_image else 1, int(f32),
         torch.cuda.current_stream(pred.device).cuda_stream)
     _build.check(err, "confusion_matrix")
     confusion_matrix_cuda.launches += 1
-    return hist.to(torch.float32)
+    return hist if f32 else hist.to(torch.float32)
 
 
 confusion_matrix_cuda.launches = 0
+
+
+def confusion_matrix_v1_cuda(pred, target, *, num_classes: int,
+                             ignore_label: int = -1, per_image: bool = False):
+    """The kernel's first design (one shared atomic a pixel), int32 counts
+    converted to float32; counts no launches."""
+    pred, target = _checked(pred, target, num_classes)
+    b, n = pred.shape
+    k = num_classes
+    hist = torch.zeros((b, k, k) if per_image else (k, k),
+                       dtype=torch.int32, device=pred.device)
+    err = _build.library().robseg_confusion_v1(
+        pred.data_ptr(), target.data_ptr(), hist.data_ptr(), b, n, k,
+        int(ignore_label), 0 if per_image else 1,
+        torch.cuda.current_stream(pred.device).cuda_stream)
+    _build.check(err, "confusion_matrix_v1")
+    return hist.to(torch.float32)
 
 
 def confusion_hist(pred, target, *, num_classes: int, ignore_label: int = -1,

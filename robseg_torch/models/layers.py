@@ -3,8 +3,10 @@
 Port of ``robseg_tpu/models/layers.py``: ``ConvModule`` (conv without
 bias, BatchNorm with eps 1e-5, ReLU) and the ConvNeXt LayerNorm with eps
 1e-6. Module names follow the reference ``state_dict`` (``conv``,
-``batch_norm``). DropPath is the identity in eval mode, and the port runs
-eval mode only, so it has no module here.
+``batch_norm``). ``DropPath`` is stochastic depth with the JAX package's
+semantics (JAX's ``Dropout2d`` is torch's ``nn.Dropout2d``); the port's
+models run in eval mode, where both are the identity. ``trunc_normal_``
+is the timm-style init of the ViT layers.
 
 The layers with parameters (``Conv2d``, ``Linear``, ``LayerNorm``,
 ``BatchNorm2d``) compute in JAX's dtype: flax modules with ``dtype=None``
@@ -61,6 +63,27 @@ class BatchNorm2d(nn.BatchNorm2d):
         return F.batch_norm(*promote(x, self.running_mean, self.running_var,
                                      self.weight, self.bias),
                             False, 0.0, self.eps)
+
+
+def trunc_normal_(t: torch.Tensor, std: float = 0.02) -> torch.Tensor:
+    """timm-style truncated normal (+-2 std) init, in place."""
+    return nn.init.trunc_normal_(t, std=std, a=-2 * std, b=2 * std)
+
+
+class DropPath(nn.Module):
+    """Stochastic depth per sample (timm semantics: the kept residual is
+    scaled by 1 / keep); the identity in eval mode or at rate 0."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.rate == 0.0 or not self.training:
+            return x
+        keep = 1.0 - self.rate
+        shape = (x.shape[0],) + (1,) * (x.ndim - 1)
+        return x * torch.bernoulli(x.new_full(shape, keep)) / keep
 
 
 class ConvModule(nn.Module):

@@ -7,8 +7,10 @@ port reproduces the JAX resizes to float32 rounding, where
 ``F.interpolate``'s float32 source coordinates drift by up to ~1e-5
 relative at 119 -> 473.
 
-  * bilinear, align_corners=False: source = (i + 0.5) * in / out - 0.5,
-    clamped to [0, in - 1];
+  * bilinear, align_corners=False (UperNet, Segmenter): source =
+    (i + 0.5) * in / out - 0.5, clamped to [0, in - 1];
+  * bilinear, align_corners=True (PSPNet, DeepLab): source =
+    i * (in - 1) / (out - 1), and 0 where out = 1;
   * adaptive average pooling: the mean over
     [floor(i * in / out), ceil((i + 1) * in / out)).
 """
@@ -21,15 +23,23 @@ import numpy as np
 import torch
 
 
-def _interp_matrix_np(in_size: int, out_size: int) -> np.ndarray:
+def _interp_matrix_np(in_size: int, out_size: int,
+                      align_corners: bool = False) -> np.ndarray:
     """(out_size, in_size) row-stochastic linear-interpolation matrix."""
     m = np.zeros((out_size, in_size), np.float32)
     if in_size == 1:
         m[:, 0] = 1.0
         return m
-    src = (np.arange(out_size, dtype=np.float64) + 0.5) * (
-        in_size / out_size) - 0.5
-    src = np.clip(src, 0.0, in_size - 1)
+    if align_corners:
+        if out_size == 1:
+            src = np.zeros((1,), np.float64)
+        else:
+            src = np.arange(out_size, dtype=np.float64) * (in_size - 1) / (
+                out_size - 1)
+    else:
+        src = (np.arange(out_size, dtype=np.float64) + 0.5) * (
+            in_size / out_size) - 0.5
+        src = np.clip(src, 0.0, in_size - 1)
     lo = np.floor(src).astype(np.int64)
     hi = np.minimum(lo + 1, in_size - 1)
     w_hi = (src - lo).astype(np.float32)
@@ -52,9 +62,11 @@ def _pool_matrix_np(in_size: int, out_size: int) -> np.ndarray:
 @functools.lru_cache(maxsize=128)
 def _matrix(kind: str, in_size: int, out_size: int, device: torch.device,
             dtype: torch.dtype) -> torch.Tensor:
-    build = _interp_matrix_np if kind == "bilinear" else _pool_matrix_np
-    return torch.from_numpy(build(in_size, out_size)).to(device=device,
-                                                         dtype=dtype)
+    if kind == "pool":
+        m = _pool_matrix_np(in_size, out_size)
+    else:
+        m = _interp_matrix_np(in_size, out_size, kind == "corners")
+    return torch.from_numpy(m).to(device=device, dtype=dtype)
 
 
 def _separable(x: torch.Tensor, kind: str, out_hw) -> torch.Tensor:
@@ -67,9 +79,10 @@ def _separable(x: torch.Tensor, kind: str, out_hw) -> torch.Tensor:
     return torch.matmul(torch.matmul(mh, x), mw.t())
 
 
-def resize_bilinear(x: torch.Tensor, out_hw) -> torch.Tensor:
-    """Bilinear resize of an NCHW tensor to ``out_hw``, align_corners=False."""
-    return _separable(x, "bilinear", out_hw)
+def resize_bilinear(x: torch.Tensor, out_hw,
+                    align_corners: bool = False) -> torch.Tensor:
+    """Bilinear resize of an NCHW tensor to ``out_hw``."""
+    return _separable(x, "corners" if align_corners else "bilinear", out_hw)
 
 
 def adaptive_avg_pool(x: torch.Tensor, out_hw) -> torch.Tensor:

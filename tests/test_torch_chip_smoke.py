@@ -135,6 +135,7 @@ def test_block_part(smoke, name, part):
      "elementwise, norms, resize, loss"),
     ("sm90_xmma_gemm_f32f32_f32f32_f32_tn_n_tilesize128x128x32(x)",
      "matmul (cuBLAS)"),
+    ("nvjet_tst_128x256_64x4_2x1_v_bz_coopA_TNN", "matmul (cuBLAS)"),
     ("void (anonymous namespace)::mlp_fused_kernel<96, true, false>(x)",
      "block mlp"),
     ("(anonymous namespace)::dwcorr_kernel(x)", "block depthwise"),
@@ -275,3 +276,67 @@ def test_split_not_measured_when_every_window_is_empty(smoke, monkeypatch,
     _fake_profiler(monkeypatch, [[] for _ in range(3)])
     assert smoke.print_split("block x fwd", lambda: None) == {}
     assert "block x fwd split: not measured" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("key,shapes,kind", [
+    ("aten::bmm", [[96, 1025, 64], [96, 64, 1025]], "attention matmuls"),
+    ("aten::bmm", [[96, 1025, 1025], [96, 1025, 64]], "attention matmuls"),
+    ("aten::bmm", [[2416, 512, 32], [2416, 32, 32]],
+     "other matmuls (linear, resize)"),
+    ("aten::mm", [[16400, 384], [384, 1152]],
+     "other matmuls (linear, resize)"),
+    ("aten::addmm", [[1152], [16400, 384], [384, 1152]],
+     "other matmuls (linear, resize)"),
+    ("aten::_softmax", [[16, 6, 1025, 1025], [], []], "softmax"),
+    ("aten::_softmax_backward_data", [[1], [1], [], []], "softmax"),
+    ("aten::cudnn_convolution", [[16, 3, 512, 512]], "convolution (cuDNN)"),
+    ("aten::convolution_backward", [[1]], "convolution (cuDNN)"),
+    ("aten::_log_softmax", [[16, 151, 512, 512]], "elementwise, norms, loss"),
+    ("aten::native_layer_norm", [[16, 1025, 384]],
+     "elementwise, norms, loss"),
+    ("aten::bmm", [], "other matmuls (linear, resize)"),
+])
+def test_op_kind_splits_attention_from_other_matmuls(smoke, key, shapes,
+                                                     kind):
+    """The families' profile: an ``aten::bmm`` of batch 16 x 6 heads is an
+    attention product; the loss's log-softmax is not the attention's."""
+    assert smoke.op_kind(key, shapes, {96}) == kind
+
+
+@pytest.mark.parametrize("blocky", [False, True])
+def test_label_maps(smoke, blocky):
+    """The confusion phase's labels: classes in [0, K) or -1 in both maps
+    at once, pred = target on about half, about 5% ignored; blocky maps
+    constant on 32 x 32 regions."""
+    pred, tgt = smoke.label_maps((2, 96, 80), 151, blocky, "cpu", 0)
+    assert pred.dtype == tgt.dtype == torch.int64
+    assert torch.equal(pred == -1, tgt == -1)
+    assert int(tgt.min()) == -1 and int(tgt.max()) < 151
+    assert 0.3 < float((pred == tgt).float().mean()) < 0.7
+    assert 0.0 < float((tgt == -1).float().mean()) < 0.2
+    regions = tgt.reshape(2, 3, 32, 80)[:, :, :, :64].reshape(
+        2, 3, 32, 2, 32).permute(0, 1, 3, 2, 4).reshape(12, -1)
+    same = (regions == regions[:, :1]).all(1)
+    assert bool(same.all()) == blocky
+
+
+def test_fixture_ade_is_an_ade20k_val_tree(smoke, tmp_path):
+    """The SEA CLI's ADE20K fixture reads as the port's ADE20K val set:
+    8 images at the 512^2 crop, labels 0..150."""
+    from robseg_torch.data import get_segmentation_dataset
+    root = smoke.fixture_ade(str(tmp_path))
+    ds = get_segmentation_dataset("ade20k", root=root, crop_size=(512, 512))
+    assert len(ds) == 8
+    x, y = ds[0]
+    assert x.shape == (512, 512, 3) and y.shape == (512, 512)
+    assert 0 <= y.min() and y.max() <= 150
+
+
+def test_cpu_checks_cover_the_new_families(smoke):
+    """The card-vs-CPU phase holds each of the five new models at full
+    width; the ResNet models' sides meet their (H - 1) % 8 == 0."""
+    assert {c[0] for c in smoke.CPU_CHECKS} == {
+        "SegMenter", "PSPNet", "PSPNet_DDCAT", "DeepLabV3",
+        "DeepLabV3_DDCAT"}
+    for name, _, _, _, side in smoke.CPU_CHECKS:
+        assert name == "SegMenter" or (side - 1) % 8 == 0

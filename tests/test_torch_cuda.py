@@ -10,7 +10,8 @@ Tolerances: the block kernels round matmul operands to bf16 (as the TPU
 kernel does), the plain version runs float32 without TF32, so the forward
 is held to atol = rtol = 2e-2 and the input gradient to a max error of
 2e-2 relative to its largest entry (the bounds of tests/test_kernels.py).
-The APGD step and the confusion histogram are held to exact equality.
+The APGD step and the confusion histogram (its redesign and its first
+design) are held to exact equality.
 
 The bf16 I/O forms of the block and FPN kernels against their float32
 forms on the upcast inputs, the result rounded once to bf16: bit for bit
@@ -38,6 +39,7 @@ from robseg_torch import kernels
 from robseg_torch.kernels import convnext_block as cb
 from robseg_torch.kernels import convnext_mlp as cm
 from robseg_torch.kernels import fpn_conv as fc
+from robseg_torch.kernels.confusion import confusion_matrix_v1_cuda
 
 pytestmark = pytest.mark.cuda
 
@@ -140,6 +142,46 @@ def test_confusion_exact(dev, per_image):
     want = kernels.confusion_matrix_plain(p, t, num_classes=k,
                                           per_image=per_image)
     assert torch.equal(got, want)
+
+
+def blocky_labels(rng, shape, k, side=32):
+    """Piecewise-constant labels, ``side`` x ``side`` regions of one class
+    (where the kernel's run merging and per-warp copies matter)."""
+    b, h, w = shape
+    lab = rng.integers(0, k, (b, h // side + 1, w // side + 1))
+    return np.kron(lab, np.ones((1, side, side), np.int64))[:, :h, :w]
+
+
+# K = 21 (VOC) and 151 (ADE20K, one 91 KB shared histogram a block); the
+# SEA batch at 512^2 and the VOC crop 473^2 (odd rows: the unaligned first
+# pixel and the ragged tail), random and blocky labels; 64 x 512^2 is 2^24
+# pixels, where the counts leave float32's exact range (int32 path)
+@pytest.mark.parametrize("k,shape,blocky", [
+    (21, (16, 512, 512), False), (21, (16, 512, 512), True),
+    (151, (16, 512, 512), False), (151, (16, 512, 512), True),
+    (21, (3, 473, 473), True), (151, (2, 7, 5), False),
+    (151, (64, 512, 512), True)])
+def test_confusion_shapes_exact(dev, k, shape, blocky):
+    rng = np.random.default_rng(2)
+    t = blocky_labels(rng, shape, k) if blocky else rng.integers(0, k, shape)
+    p = np.where(rng.random(shape) < 0.5, t,
+                 blocky_labels(rng, shape, k) if blocky
+                 else rng.integers(0, k, shape))
+    t = torch.tensor(t, device=dev)
+    p = torch.tensor(p, device=dev)
+    t[torch.rand(shape, device=dev) < 0.05] = -1
+    for per_image in (False, True):
+        kw = dict(num_classes=k, per_image=per_image)
+        want = kernels.confusion_matrix_plain(p, t, **kw)
+        assert torch.equal(kernels.confusion_matrix_cuda(p, t, **kw), want)
+        assert torch.equal(confusion_matrix_v1_cuda(p, t, **kw), want)
+    # a view whose rows start off the 16-byte grid
+    off = (t.flatten()[1:], p.flatten()[1:])
+    assert torch.equal(
+        kernels.confusion_matrix_cuda(off[1][None], off[0][None],
+                                      num_classes=k),
+        kernels.confusion_matrix_plain(off[1][None], off[0][None],
+                                       num_classes=k))
 
 
 # the kernel's edges: C = 96 (a channel tail against 64-channel K-steps),

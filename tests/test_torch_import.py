@@ -78,3 +78,9 @@ def test_device_key(tmp_path):
         else:
             with pytest.raises(RuntimeError, match="no"):
                 resolve_device({"DEVICE": name})
+
+
+def test_segmenter_variants_match():
+    from robseg_tpu.models import SEGMENTER_VARIANTS as ref
+    from robseg_torch.models import SEGMENTER_VARIANTS
+    assert SEGMENTER_VARIANTS == ref

@@ -152,8 +152,14 @@ def test_train_mode_raises(port_model):
 
 
 def test_other_models_name_later_slice():
-    with pytest.raises(NotImplementedError, match="later slice"):
-        build_model("SegMenter", "vit_small_patch16_384", 21)
+    """The other families are no longer a later slice: ``build_model``
+    builds them (tests/test_torch_families.py holds them against JAX), and
+    only a name the JAX package does not know raises."""
+    from robseg_torch.models.segmenter import SegMenter
+    assert isinstance(build_model("SegMenter", "vit_tiny_patch16_384", 21,
+                                  image_size=(64, 64)), SegMenter)
+    with pytest.raises(ValueError, match="Unknown model"):
+        build_model("FCN", "ResNet-50", 21)
 
 
 def test_fused_settings_keep_the_parameters(jax_vars):

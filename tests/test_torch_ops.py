@@ -110,6 +110,33 @@ def test_resize_and_pool_match(rng, hw_in, hw_out):
                                    want, atol=1e-5, rtol=0)
 
 
+@pytest.mark.parametrize("hw_in,hw_out", [((60, 60), (473, 473)),
+                                          ((5, 7), (33, 17)),
+                                          ((9, 9), (1, 1)),
+                                          ((1, 1), (60, 60)),
+                                          ((1, 6), (4, 1)),
+                                          ((12, 10), (5, 3))])
+def test_resize_align_corners_matches(rng, hw_in, hw_out):
+    """align_corners=True (PSPNet, PPM, ASPP): source i * (in - 1) /
+    (out - 1), with the out = 1 and in = 1 edges."""
+    x = rng.normal(size=(2, 3) + hw_in).astype(np.float32)
+    want = np.moveaxis(np.asarray(j_resize(jnp.asarray(_nhwc(x)), hw_out,
+                                           align_corners=True)), -1, 1)
+    got = resize_bilinear(torch.tensor(x), hw_out, align_corners=True)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("bins", [2, 3, 6])
+def test_adaptive_pool_uneven_bins_matches(rng, bins):
+    """A 5 x 5 map at the PPM bins, which do not divide it (and bin 6,
+    above the map's size)."""
+    x = rng.normal(size=(1, 4, 5, 5)).astype(np.float32)
+    want = np.moveaxis(np.asarray(j_pool(jnp.asarray(_nhwc(x)),
+                                         (bins, bins))), -1, 1)
+    got = adaptive_avg_pool(torch.tensor(x), (bins, bins))
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-6, rtol=0)
+
+
 def _preds(rng):
     t = rng.integers(0, K, (3, 23, 17))
     p = np.where(rng.random(t.shape) < 0.6, t, rng.integers(0, K, t.shape))
