@@ -1,8 +1,10 @@
 """Smoke run of robseg_torch on one NVIDIA GPU: the SEA main path, the
 fused-variant attack path (MLP-tail and FPN concat-conv kernels), the
 ``--precision bf16`` path (the bf16 I/O forms of the block and FPN
-kernels), and the SEA path of the Segmenter-ViT and PSPNet/DeepLab
-families (the APGD-step and confusion kernels).
+kernels), the SEA path of the Segmenter-ViT and PSPNet/DeepLab
+families (the APGD-step and confusion kernels), and the PIR-AT train
+path (the block pair in the attack's twin, the APGD-step kernel under
+``TRAIN.ATTACK: apgd``, the confusion kernel in the evaluations).
 
     python3 chip_smoke.py
 
@@ -19,7 +21,9 @@ result line):
      sm_90a);
   2. (TF32 off) each kernel against its plain PyTorch version at the
      shapes its path
-     gives it (batch 16, 512^2; plus a ragged 119^2 case; for the block
+     gives it (batch 16, 512^2; plus a ragged 119^2 case, and for the
+     block pair the four stages of the train path, batch 32 at 473^2:
+     119^2, 59^2, 29^2, 14^2, the last two in the whole-image form; for the block
      kernels also each kernel's own time per stage from torch.profiler and
      the stage's roofline share; for the FPN
      kernels also 3 sources of (3, 40, 72, 96) with Co = 160, the channel
@@ -94,7 +98,38 @@ result line):
      models (forward, input gradient, APGD step), by the PyTorch op that
      launched each kernel: attention matmuls, softmax, other matmuls
      (linear layers, resizes), cuDNN convolutions, elementwise work, norms
-     and the loss, the APGD step; and the idle share.
+     and the loss, the APGD step; and the idle share;
+ 10. the train path under the CLI's numerics (TF32):
+     10t. (TF32 off, before the count) the fused-attack trainer after one
+          step, batch 32 at 473^2: the twin's logits and the input
+          gradient of the PGD loss against the plain module's on the same
+          parameters and BatchNorm statistics (phase 3's bounds), and
+          PGD-5 through each (the share of equal entries, the loss each
+          reaches on the plain module, which must exceed the clean loss);
+          a backward through the twin with weights that require grad must
+          raise;
+     then, counted from zero (the train CLI's printed counts added):
+     10a. the full-width UperNet-ConvNeXt-T_CVST train step (21 classes,
+          473^2, batch 32, AdamW lr 1e-4 wd 0.05 warmuppolylr, PGD-5 at
+          eps 4/255, alpha 1e-2; seeded random images, blocky labels) with
+          the attack through the block kernels' twin and through the
+          plain module: 2 warm-up and 6 timed steps each, s/step, train
+          images/s, peak memory; a torch.profiler split of one step
+          (attack, update forward+backward, optimizer) by kind with idle
+          shares; every parameter and BatchNorm statistic must move; one
+          eval step;
+     10b. one step with TRAIN.ATTACK apgd;
+     10c. ``python -m robseg_torch.train`` on a fixture VOC tree (48
+          train, 8 val images; batch 8, eval every epoch on one batch)
+          for 12 iterations with --fused_attack, --resume to 14; then the
+          SEA CLI on its best_model.pth at eps 4 (its launches printed on
+          their own, not counted as the train path's);
+     10d. 3 train steps at batch 8 on PSPNet-R50 (voc_pspnet.yaml, SGD
+          with x10 head scales, 473^2) and Segmenter ViT-S/16
+          (ade20k_segmenter.yaml, 512^2, 151 classes), full width: s/step,
+          peak memory, finite losses;
+     the block pair, the APGD-step and the confusion kernels must have
+     launched on it (``launches_train_path`` in the kernels line).
 Each phase prints its seconds. Then one JSON line of per-kernel results,
 and the last line
 ``{"ok": true, "device": {...}}``.
@@ -366,7 +401,7 @@ def print_split(label: str, fn) -> dict:
     return parts
 
 
-def phase_kernels(dev, results):
+def phase_kernels(dev, results, train_stages=()):
     from robseg_torch.kernels import apgd_step
     from robseg_torch.kernels import convnext_block as cb
     rng = np.random.default_rng(0)
@@ -382,7 +417,7 @@ def phase_kernels(dev, results):
           f"{cb.FUSED_MAX_C}, two GEMMs through a bf16 hidden layer above; "
           f"{cb.TILE_M}-token tiles, {cb.HIDDEN_CHUNK}-wide hidden chunks "
           f"and K-steps, TMA + wgmma", flush=True)
-    for shape in stages + [(2, 119, 119, 96)]:
+    for shape in stages + [(2, 119, 119, 96)] + list(train_stages):
         p = block_params(rng, shape[-1], dev)
         x = torch.randn(shape, device=dev)
         dy = torch.randn(shape, device=dev)
@@ -1286,12 +1321,13 @@ def fixture_ade(tmp: str) -> str:
 
 def phase_cli(tmp: str, precision: str = "default",
               cfg_name: str = "rig_voc_demo.yaml", fixture=fixture_voc,
-              eps=(8,), n_iter: int = 10) -> dict:
+              eps=(8,), n_iter: int = 10, ckpt=None) -> dict:
     """The SEA CLI (``python -m robseg_torch.infer``) on a fixture tree
     with a config from configs/ (its ROOT and SAVE_DIR pointed into
-    ``tmp``), one batch, every eps of ``eps``: one finite JSON a eps whose
-    worst case is at most each loss's mIoU, and every adversarial batch
-    inside its eps ball. Returns the kernel launch counts it printed."""
+    ``tmp``), one batch, every eps of ``eps``, on the weights of ``ckpt``
+    (random init without): one finite JSON a eps whose worst case is at
+    most each loss's mIoU, and every adversarial batch inside its eps
+    ball. Returns the kernel launch counts it printed."""
     import yaml
     root = fixture(tmp)
     with open(os.path.join(REPO, "configs", cfg_name)) as f:
@@ -1306,7 +1342,8 @@ def phase_cli(tmp: str, precision: str = "default",
     p = subprocess.run([sys.executable, "-m", "robseg_torch.infer", "--cfg",
                         cfg_path, "--eps", ",".join(f"{e:g}" for e in eps),
                         "--n_iter", str(n_iter), "--n_batches", "1",
-                        "--precision", precision],
+                        "--precision", precision]
+                       + (["--ckpt", ckpt] if ckpt else []),
                        cwd=REPO, capture_output=True, text=True)
     if p.returncode != 0:
         raise RuntimeError(f"SEA CLI exited {p.returncode}:\n"
@@ -1350,6 +1387,8 @@ def phase_cli(tmp: str, precision: str = "default",
     if m is None:
         raise AssertionError("SEA CLI printed no kernel launch counts")
     counts = json.loads(m.group(1))
+    if ckpt and "evaluating random init" in out:
+        raise AssertionError(f"SEA CLI did not load {ckpt}")
     print(f"SEA CLI {cfg_name} --precision {precision} (8 fixture images, "
           f"one batch, n_iter {n_iter}, eps {list(eps)}/255) in "
           f"{time.time() - t0:.1f} s: " + "; ".join(
@@ -1690,6 +1729,357 @@ def phase_family_profiles(dev):
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------- phase 10
+
+TRAIN_PATH = ("convnext_block_fwd", "convnext_block_dx", "apgd_linf_step",
+              "confusion_matrix")
+UPERNET = ("UperNetForSemanticSegmentation", "ConvNeXt-T_CVST")
+TRAIN_BATCH, TRAIN_HW, TRAIN_TIMED = 32, 473, 6
+
+
+def train_stage_shapes() -> list:
+    """The (N, H, W, C) input of each ConvNeXt stage on the train path
+    (batch 32 at 473^2), from a forward of the plain module on the meta
+    device."""
+    from robseg_torch.models import build_model as build
+    shapes = []
+    with torch.device("meta"):
+        m = build(*UPERNET, N_CLS, fused=False).eval()
+        for stage in m.backbone.stages:
+            stage.register_forward_pre_hook(
+                lambda mod, args: shapes.append(tuple(args[0].shape)))
+        m(torch.zeros(TRAIN_BATCH, 3, TRAIN_HW, TRAIN_HW))
+    return shapes
+
+
+def train_inputs(dev, b, hw, k, seed=5):
+    """Seeded random images and blocky (32 x 32 regions) labels, no ignore
+    pixels (VOC's train labels have none)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.rand((b, 3, hw, hw), device=dev, generator=g)
+    small = torch.randint(0, k, (b, hw // 32 + 1, hw // 32 + 1), device=dev,
+                          generator=g)
+    y = small.repeat_interleave(32, 1).repeat_interleave(32, 2)[
+        :, :hw, :hw].contiguous()
+    return x, y
+
+
+def upernet_trainer(dev, fused_attack: bool, attack: str = "pgd"):
+    """The CLI's UperNet-ConvNeXt-T_CVST trainer (plain module, seeded
+    random init, 21 classes): AdamW lr 1e-4, wd 0.05, warmuppolylr (2
+    warm-up steps of 100), PGD-5 (or APGD-5) at eps 4/255, alpha 1e-2;
+    the attack through the block kernels' twin (on the meta device: it
+    takes this step's parameters) or through the plain module."""
+    from robseg_torch.models import build_model as build
+    from robseg_torch.train import (AttackConfig, Trainer, get_scheduler,
+                                    make_optimizer)
+    torch.manual_seed(0)
+    module = build(*UPERNET, N_CLS, fused=False).to(dev)
+    twin = None
+    if fused_attack:
+        with torch.device("meta"):
+            twin = build(*UPERNET, N_CLS, fused=True)
+    opt = make_optimizer("adamw", module, get_scheduler(
+        "warmuppolylr", 1e-4, 100, 1.0, 2, 1e-5), weight_decay=0.05)
+    return Trainer(module, UPERNET[0], opt,
+                   AttackConfig(name=attack, eps=4 / 255, n_iters=5),
+                   twin=twin,
+                   generator=torch.Generator(device=dev).manual_seed(0))
+
+
+def time_train_steps(trainer, x, y, warm: int, timed_steps: int):
+    """(s/step, peak GiB, losses): ``warm`` steps, then ``timed_steps``
+    timed on the host's clock between two device syncs."""
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(warm):
+        trainer.train_step(x, y)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [trainer.train_step(x, y) for _ in range(timed_steps)]
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / timed_steps
+    losses = [float(v) for v in losses]
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite train loss: {losses}")
+    return dt, torch.cuda.max_memory_allocated() / 2 ** 30, losses
+
+
+def profile_train_step(trainer, x, y, label: str):
+    """torch.profiler split of one train step into its three parts: the
+    attack (its 5 forwards and input gradients), the update's forward and
+    backward, the optimizer step; kernel time by kind and idle share of
+    each."""
+    parts = {}
+    x_adv = trainer.attack(x, y)
+
+    def update():
+        trainer.optimizer.zero_grad()
+        trainer.loss_fn(trainer.module, x_adv, y).backward()
+    for name, fn in (("attack", lambda: trainer.attack(x, y)),
+                     ("update forward+backward", update),
+                     ("optimizer", trainer.optimizer.optimizer.step)):
+        rows, wall = profiled(fn, 1)
+        if not rows:
+            parts[name] = f"{wall:.1f} ms wall, split not measured"
+            continue
+        kinds = {}
+        for key, ms, _ in rows:
+            kinds[kernel_kind(key)] = kinds.get(kernel_kind(key), 0.0) + ms
+        busy = sum(kinds.values())
+        parts[name] = (
+            f"{wall:.1f} ms wall, {busy:.1f} ms of kernels, idle share "
+            f"{max(0.0, 1 - busy / wall):.4f}: " + ", ".join(
+                f"{k} {v:.1f}" for k, v in
+                sorted(kinds.items(), key=lambda kv: -kv[1])))
+    print(f"train-step profile ({label}): " + "; ".join(
+        f"{k}: {v}" for k, v in parts.items()), flush=True)
+
+
+def phase_train_twin(dev):
+    """10t, under strict float32 and before the train path's count: the
+    fused-attack trainer after one step (moved weights and BatchNorm
+    statistics), batch 32 at 473^2. The twin (block kernels) against the
+    plain module on the same parameters: logits atol = rtol = 2e-2, the
+    input gradient of the PGD loss within 0.15 of its largest entry with
+    cosine >= 0.99 (phase 3's bounds). PGD-5 through each: both inside
+    the eps ball and [0, 1], and each raises the plain module's loss above
+    the clean loss. A backward through the twin with weights that require
+    grad must raise."""
+    from torch.func import functional_call
+    from robseg_torch.attacks.pgd import TRAIN_ATTACK_LOSSES
+    x, y = train_inputs(dev, TRAIN_BATCH, TRAIN_HW, N_CLS)
+    trainer = upernet_trainer(dev, True)
+    twin = trainer.twin
+    with strict_float32():
+        trainer.train_step(x, y)
+        trainer.optimizer.zero_grad()
+
+        def logits_and_grad(t):
+            trainer.twin = t
+            with trainer.attack_model() as lf:
+                xg = x.clone().requires_grad_(True)
+                logits = lf(xg)
+                loss = TRAIN_ATTACK_LOSSES["pgd"](logits, y)
+                return logits.detach(), torch.autograd.grad(loss, xg)[0]
+
+        def plain_loss(xa):
+            trainer.twin = None
+            with torch.no_grad(), trainer.attack_model() as lf:
+                return float(TRAIN_ATTACK_LOSSES["pgd"](lf(xa), y))
+
+        lt, gt = logits_and_grad(twin)
+        lp, gp = logits_and_grad(None)
+        e_l = float((lt - lp).abs().max())
+        close = bool(torch.allclose(lt, lp, atol=2e-2, rtol=2e-2))
+        e_g = rel_max_err(gt, gp)
+        cos = float(torch.nn.functional.cosine_similarity(
+            gt.flatten(), gp.flatten(), dim=0))
+        del lt, lp, gt, gp
+        trainer.twin = twin
+        xa_twin = trainer.attack(x, y)
+        trainer.twin = None
+        xa_plain = trainer.attack(x, y)
+        losses = [plain_loss(v) for v in (x, xa_twin, xa_plain)]
+    same = float(((xa_twin - xa_plain).abs() <= 1e-6).float().mean())
+    dev_max = max(float((v - x).abs().max()) for v in (xa_twin, xa_plain))
+    print(f"twin vs plain module (TF32 off; batch {TRAIN_BATCH}, "
+          f"{TRAIN_HW}^2, after one train step): logits max_abs_err "
+          f"{e_l:.3e}, PGD-loss input-grad rel_max_err {e_g:.3e}, cosine "
+          f"{cos:.6f}; PGD-5 adversarial batches equal on a share {same:.5f} "
+          f"of entries, max |x_adv - x| {dev_max:.6f} (eps "
+          f"{4 / 255:.6f}); plain-module loss clean {losses[0]:.6f}, on the "
+          f"twin's x_adv {losses[1]:.6f}, on the plain x_adv "
+          f"{losses[2]:.6f}", flush=True)
+    if not (close and math.isfinite(e_g) and e_g <= 0.15 and cos >= 0.99):
+        raise AssertionError(f"twin vs plain module: logits {e_l}, input "
+                             f"grad {e_g}, cosine {cos}")
+    if not (dev_max <= 4 / 255 + 1e-6 and losses[1] > losses[0]
+            and losses[2] > losses[0]
+            and all(float(v.min()) >= 0 and float(v.max()) <= 1
+                    for v in (xa_twin, xa_plain))):
+        raise AssertionError(f"train attack: max |x_adv - x| {dev_max}, "
+                             f"losses (clean, twin, plain) {losses}")
+    m = trainer.module
+    tensors = dict(m.named_parameters())  # they require grad
+    tensors.update(m.named_buffers())
+    try:
+        functional_call(twin, tensors, (x[:1, :, :64, :64],)).sum().backward()
+    except RuntimeError as e:
+        if "input gradients only" not in str(e):
+            raise
+        print("backward through the kernels' twin with weights that "
+              "require grad: raises, as it should", flush=True)
+    else:
+        raise AssertionError("a backward through the block kernel with "
+                             "weights that require grad did not raise")
+    del trainer, m, tensors, xa_twin, xa_plain
+    torch.cuda.empty_cache()
+
+
+def phase_train_step(dev, smi: str):
+    """10a: the full-width train step with the fused and the plain attack,
+    its profile, the parameters and BatchNorm statistics moving, and one
+    eval step (the confusion kernel)."""
+    x, y = train_inputs(dev, TRAIN_BATCH, TRAIN_HW, N_CLS)
+    for fused in (True, False):
+        label = "fused attack" if fused else "plain attack"
+        trainer = upernet_trainer(dev, fused)
+        m = trainer.module
+        p0 = {n: p.detach().clone() for n, p in m.named_parameters()}
+        s0 = {n: b.clone() for n, b in m.named_buffers()
+              if n.endswith(("running_mean", "running_var"))}
+        dt, peak, losses = time_train_steps(trainer, x, y, 2, TRAIN_TIMED)
+        still = [n for n, p in m.named_parameters()
+                 if torch.equal(p.detach(), p0[n])]
+        stale = [n for n, b in m.named_buffers() if n in s0
+                 and torch.equal(b, s0[n])]
+        if still or stale:
+            raise AssertionError(f"train step ({label}): parameters that "
+                                 f"did not move {still[:5]}, BatchNorm "
+                                 f"statistics that did not {stale[:5]}")
+        print(f"train step ({label}), UperNet-ConvNeXt-T_CVST, 21 classes, "
+              f"batch {TRAIN_BATCH}, {TRAIN_HW}^2, AdamW, PGD-5: "
+              f"{dt:.4f} s/step, {TRAIN_BATCH / dt:.2f} train images/s, "
+              f"peak {peak:.2f} GiB ({TRAIN_TIMED} timed steps after 2); "
+              f"losses {[round(v, 4) for v in losses]}; all "
+              f"{len(p0)} parameters and {len(s0)} BatchNorm statistics "
+              f"moved [{smi}]", flush=True)
+        profile_train_step(trainer, x, y, label)
+        if fused:
+            hist = trainer.eval_step(x[:8], y[:8], torch.zeros(
+                (N_CLS, N_CLS), device=dev))
+            if int(hist.sum()) != y[:8].numel():
+                raise AssertionError("eval step histogram does not count "
+                                     "every pixel")
+        del trainer, m, p0
+        torch.cuda.empty_cache()
+
+
+def phase_train_apgd(dev):
+    """10b: one step with TRAIN.ATTACK apgd (Linf, random start, ce-avg,
+    x_best; the APGD-step kernel) through the fused twin."""
+    x, y = train_inputs(dev, TRAIN_BATCH, TRAIN_HW, N_CLS)
+    trainer = upernet_trainer(dev, True, attack="apgd")
+    dt, peak, losses = time_train_steps(trainer, x, y, 1, 1)
+    print(f"train step with TRAIN.ATTACK apgd (5 iterations, fused twin), "
+          f"batch {TRAIN_BATCH}, {TRAIN_HW}^2: {dt:.4f} s (second step), "
+          f"peak {peak:.2f} GiB, loss {losses[0]:.4f}", flush=True)
+    del trainer
+    torch.cuda.empty_cache()
+
+
+def fixture_voc_train(tmp: str) -> str:
+    """The fixture VOC tree with a train split: 48 train and 8 val images
+    (tools/make_fixture_dataset.py)."""
+    root = os.path.join(tmp, "voc_train")
+    if not os.path.isdir(root):
+        subprocess.run([sys.executable, os.path.join(
+            REPO, "tools", "make_fixture_dataset.py"), "--root", root,
+            "--n_train", "48", "--n_val", "8"], check=True)
+    return root
+
+
+def run_train_cli(cfg_path: str, run_dir: str, *flags) -> str:
+    p = subprocess.run([sys.executable, "-m", "robseg_torch.train", "--cfg",
+                        cfg_path, "--run_dir", run_dir, *flags], cwd=REPO,
+                       capture_output=True, text=True)
+    if p.returncode != 0:
+        raise RuntimeError(f"train CLI exited {p.returncode}:\n"
+                           f"{p.stdout[-4000:]}\n{p.stderr[-4000:]}")
+    return p.stdout
+
+
+def phase_train_cli(tmp: str):
+    """10c: ``python -m robseg_torch.train`` on the fixture (pascalvoc,
+    batch 8, eval every epoch on one batch) for 12 iterations with
+    ``--fused_attack``, ``--resume`` to 14, then the SEA CLI on its
+    ``best_model.pth``. Returns the launch counts the two train runs
+    printed, and the SEA CLI's apart (not the train path's)."""
+    import yaml
+    root = fixture_voc_train(tmp)
+    with open(os.path.join(REPO, "configs", "pascalvoc_convnext.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    cfg["DATASET"].update(NAME="pascalvoc", ROOT=root)
+    cfg["TRAIN"].update(BATCH_SIZE=8, EVAL_FREQ=1, EVAL_BATCHES=1)
+    cfg["SAVE_DIR"] = os.path.join(tmp, "out_train")
+    cfg_path = os.path.join(tmp, "cfg_train.yaml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    run = os.path.join(tmp, "train_run")
+    counts = {}
+
+    def add(out):
+        m = re.search(r"^kernel launches: (\{.*\})$", out, re.M)
+        if m is None:
+            raise AssertionError("train CLI printed no kernel launch counts")
+        for k, n in json.loads(m.group(1)).items():
+            counts[k] = counts.get(k, 0) + n
+    t0 = time.time()
+    out = run_train_cli(cfg_path, run, "--max_iters", "12", "--fused_attack")
+    losses = [float(v) for v in re.findall(r"Loss: ([0-9.eE+-]+)", out)]
+    evals = re.findall(r"val mIoU=([0-9.]+) aAcc=([0-9.]+)", out)
+    if len(losses) != 4 or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"train CLI losses: {losses}")
+    if len(evals) != 2 or "full mIoU" not in out:
+        raise AssertionError(f"train CLI evals: {evals}")
+    add(out)
+    t1 = time.time()
+    out2 = run_train_cli(cfg_path, run, "--max_iters", "14", "--resume",
+                         "--fused_attack")
+    if "Resumed from step 12" not in out2 or "full mIoU" not in out2:
+        raise AssertionError("train CLI --resume did not resume at 12")
+    add(out2)
+    ckpts = sorted(os.listdir(os.path.join(run, "ckpts")))
+    best = os.path.join(run, "best_model.pth")
+    if not os.path.exists(best):
+        raise AssertionError("train CLI wrote no best_model.pth")
+    print(f"train CLI (fixture VOC, 48 train / 8 val images, batch 8, "
+          f"--fused_attack): 12 iterations in {t1 - t0:.1f} s (process "
+          f"included), losses {losses}, evals (mIoU, aAcc) {evals}; resume "
+          f"to 14 in {time.time() - t1:.1f} s; checkpoints {ckpts}",
+          flush=True)
+    sea = phase_cli(tmp, "default", "pascalvoc_convnext.yaml",
+                    fixture_voc_train, eps=(4,), n_iter=3, ckpt=best)
+    return counts, sea
+
+
+# (label, model, backbone, config, classes, side): the other families at
+# full width, 3 train steps at batch 8 with their config's optimizer
+TRAIN_FAMILIES = (
+    ("PSPNet-R50", "PSPNet", "ResNet-50", "voc_pspnet.yaml", N_CLS, 473),
+    ("Segmenter ViT-S/16", "SegMenter", "vit_small_patch16_224",
+     "ade20k_segmenter.yaml", N_ADE, 512))
+
+
+def phase_train_families(dev, smi: str):
+    """10d: 3 train steps at batch 8 on PSPNet-R50 (SGD, x10 head scales,
+    473^2) and Segmenter ViT-S/16 (timm-poly SGD, 512^2, 151 classes),
+    PGD-5 through the plain module: s/step, peak memory, finite loss."""
+    import yaml
+    from robseg_torch.models import build_model as build
+    from robseg_torch.train import AttackConfig, Trainer
+    from robseg_torch.train.__main__ import build_optimizer
+    for label, name, backbone, cfg_name, k, side in TRAIN_FAMILIES:
+        with open(os.path.join(REPO, "configs", cfg_name)) as f:
+            cfg = yaml.safe_load(f)
+        torch.manual_seed(0)
+        module = build(name, backbone, k, image_size=(side, side),
+                       pspnet_clean="clean" in str(cfg.get("ADDENDUM", ""))
+                       ).to(dev)
+        opt, _ = build_optimizer(cfg, name, module, 100, 10)
+        trainer = Trainer(module, name, opt, AttackConfig(
+            eps=4 / 255, n_iters=5),
+            generator=torch.Generator(device=dev).manual_seed(0))
+        x, y = train_inputs(dev, 8, side, k)
+        dt, peak, losses = time_train_steps(trainer, x, y, 1, 2)
+        print(f"train step {label} ({cfg_name}, {side}^2, {k} classes, "
+              f"batch 8, PGD-5): {dt:.4f} s/step, {8 / dt:.2f} train "
+              f"images/s, peak {peak:.2f} GiB, losses "
+              f"{[round(v, 4) for v in losses]} [{smi}]", flush=True)
+        del trainer, module, opt
+        torch.cuda.empty_cache()
+
+
 @contextlib.contextmanager
 def timed(name: str):
     """Print a phase's wall seconds when it ends."""
@@ -1698,34 +2088,16 @@ def timed(name: str):
     print(f"phase {name}: {time.time() - t0:.1f} s", flush=True)
 
 
-def main():
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
-        sys.exit(2)
+def phases_sea(dev, results) -> dict:
+    """Phases 2-9p: the kernels against their plain versions, the models,
+    and the SEA paths, each path's launches counted from zero. Returns the
+    counts by path."""
     from robseg_torch import kernels
-    from robseg_torch.infer import set_numerics
-    from robseg_torch.kernels import _build
-
-    dev = torch.device("cuda")
-    set_numerics()
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip()
-    print(f"device: {torch.cuda.get_device_name(0)}; torch "
-          f"{torch.__version__}, CUDA {torch.version.cuda}", flush=True)
-    print(smi, flush=True)
-
-    t0 = time.time()
-    path = _build.build()
-    print(f"build: {time.time() - t0:.1f} s ({os.path.relpath(path, REPO)})",
-          flush=True)
-
-    results = {}
     bundle = build_model(dev)
     weights = bundle.module.state_dict()
     with strict_float32():
         with timed("2 kernels"):
-            phase_kernels(dev, results)
+            phase_kernels(dev, results, train_stage_shapes())
         with timed("2 fpn"):
             phase_fpn(dev, results)
         with timed("2 mlp"):
@@ -1796,16 +2168,71 @@ def main():
                     families_counts[name] += n
     with timed("9p families profiles"):
         phase_family_profiles(dev)
-    print(f"main-path launches: {main_counts}", flush=True)
-    print(f"fused-variant-path launches: {fused_counts}", flush=True)
-    print(f"bf16-path launches: {bf16_counts}", flush=True)
-    print(f"families-path launches: {families_counts}", flush=True)
-    launches = {name: (main_counts if name in MAIN_PATH else
-                       fused_counts if name in FUSED_PATH else
-                       bf16_counts)[name] for name in REPLACES}
-    missing = [k for k, n in launches.items() if n <= 0] + [
+    torch.cuda.empty_cache()
+    return {"main": main_counts, "fused-variant": fused_counts,
+            "bf16": bf16_counts, "families": families_counts}
+
+
+def phases_train(dev, smi: str) -> dict:
+    """Phase 10, the PIR-AT train path: 10t, then 10a-10d counted from
+    zero (the train CLI's printed counts added). Returns its launch
+    counts."""
+    from robseg_torch import kernels
+    with timed("10t twin vs plain"):
+        phase_train_twin(dev)
+    kernels.reset_launch_counts()
+    with timed("10a train step"):
+        phase_train_step(dev, smi)
+    with timed("10b train apgd"):
+        phase_train_apgd(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        with timed("10c train CLI"):
+            cli_counts, sea_counts = phase_train_cli(tmp)
+    with timed("10d train families"):
+        phase_train_families(dev, smi)
+    counts = kernels.launch_counts()
+    for name, n in cli_counts.items():
+        counts[name] += n
+    print(f"SEA CLI on the trained best_model.pth, launches (not the train "
+          f"path's): {sea_counts}", flush=True)
+    return counts
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
+        sys.exit(2)
+    from robseg_torch.infer import set_numerics
+    from robseg_torch.kernels import _build
+
+    dev = torch.device("cuda")
+    set_numerics()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    print(f"device: {torch.cuda.get_device_name(0)}; torch "
+          f"{torch.__version__}, CUDA {torch.version.cuda}", flush=True)
+    print(smi, flush=True)
+
+    t0 = time.time()
+    path = _build.build()
+    print(f"build: {time.time() - t0:.1f} s ({os.path.relpath(path, REPO)})",
+          flush=True)
+
+    results = {}
+    paths = phases_sea(dev, results)
+    train_counts = phases_train(dev, smi)
+    print(f"train-path launches: {train_counts}", flush=True)
+    missing = [f"{k} (train path)" for k in TRAIN_PATH
+               if train_counts[k] <= 0]
+    for label, counts in paths.items():
+        print(f"{label}-path launches: {counts}", flush=True)
+    launches = {name: paths["main" if name in MAIN_PATH else
+                            "fused-variant" if name in FUSED_PATH else
+                            "bf16"][name] for name in REPLACES}
+    missing += [k for k, n in launches.items() if n <= 0] + [
         f"{k} (families path)" for k in FAMILIES_PATH
-        if families_counts[k] <= 0]
+        if paths["families"][k] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on their path: "
                              f"{missing}")
@@ -1813,8 +2240,10 @@ def main():
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],
          "replaces": REPLACES[name], "launches": launches[name],
-         **({"launches_families_path": families_counts[name]}
+         **({"launches_families_path": paths["families"][name]}
             if name in FAMILIES_PATH else {}),
+         **({"launches_train_path": train_counts[name]}
+            if name in TRAIN_PATH else {}),
          **{k: results[name][k] for k in ("max_abs_err", "ms", "plain_ms",
                                           "bound_ms", "bound_by",
                                           "library_ms", "stages", "modes",

@@ -1,12 +1,13 @@
 """YAML experiment configs with the reference's section schema.
 
 Port of ``robseg_tpu/config.py`` (``load_config``, ``dataset_eval_geometry``,
-``model_display_name``) plus ``resolve_device``, which reads the YAML
-``DEVICE`` key.
+``model_display_name``, ``TrainSettings``) plus ``resolve_device``, which
+reads the YAML ``DEVICE`` key.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict
 
 import torch
@@ -50,3 +51,60 @@ def resolve_device(cfg: Dict[str, Any]) -> torch.device:
                 "available (set DEVICE: cpu to run on the CPU)")
         return torch.device("cuda")
     raise ValueError(f"Unknown DEVICE {name!r}")
+
+
+DEVICE_AUG_REFUSED = (
+    "TRAIN.DEVICE_AUG: the on-device augmentation pipeline (the JAX "
+    "package's data/device_transforms.py, a JAX affine gather) is not "
+    "ported to robseg_torch yet (ROADMAP.md, section 1 item 5); set "
+    "DEVICE_AUG: false to augment on the host")
+
+
+@dataclasses.dataclass
+class TrainSettings:
+    """Typed view over the TRAIN section with the reference's defaults; a
+    copy of ``robseg_tpu/config.py:42-94`` (same keys, same defaults).
+
+    ``ddp`` is informational: the port trains on one card (the CLI logs a
+    note when it is false). ``eval_interval`` is dead in the reference
+    too. ``device_aug: true`` is refused (``DEVICE_AUG_REFUSED``).
+    """
+    base_size: int = 512
+    image_size: tuple = (473, 473)
+    batch_size: int = 16
+    epochs: int = 50
+    adversarial: bool = True
+    attack: str = "pgd"
+    loss_fn: str = "pgd"
+    eps: float = 4.0
+    n_iters: int = 5
+    amp: bool = False
+    ddp: bool = True
+    eval_interval: int = 32
+    freeze: bool = False
+    device_aug: bool = False
+    # periodic eval: every EVAL_FREQ epochs on EVAL_BATCHES val batches
+    # (-1 = the full split)
+    eval_freq: int = 20
+    eval_batches: int = 20
+
+    @classmethod
+    def from_cfg(cls, t: Dict[str, Any]) -> "TrainSettings":
+        return cls(
+            base_size=t.get("BASE_SIZE", 512),
+            image_size=tuple(t.get("IMAGE_SIZE", (473, 473))),
+            batch_size=t.get("BATCH_SIZE", 16),
+            epochs=t.get("EPOCHS", 50),
+            adversarial=t.get("ADVERSARIAL", True),
+            attack=t.get("ATTACK", "pgd"),
+            loss_fn=t.get("LOSS_FN", "pgd"),
+            eps=float(t.get("EPS", 4)),
+            n_iters=t.get("N_ITERS", 5),
+            amp=t.get("AMP", False),
+            ddp=t.get("DDP", True),
+            eval_interval=t.get("EVAL_INTERVAL", 32),
+            freeze=t.get("FREEZE", False),
+            device_aug=t.get("DEVICE_AUG", False),
+            eval_freq=t.get("EVAL_FREQ", 20),
+            eval_batches=t.get("EVAL_BATCHES", 20),
+        )

@@ -16,11 +16,14 @@ JAX -> PyTorch:
   PyTorch's BatchNorm keeps in its state).
 
 The input is numpy trees (``params``, ``batch_stats``), so this module needs
-no JAX.
+no JAX; ``npz_state_dict`` reads them from a JAX trainer's ``.npz`` files
+(``save_params_npz``: ``/``-joined key paths, the BatchNorm statistics in
+a ``.stats.npz`` sibling).
 """
 
 from __future__ import annotations
 
+import os
 import re
 from typing import Dict
 
@@ -274,3 +277,49 @@ def segmenter_state_dict_from_jax(params: Dict, n_layers: int = 12,
     _ln(sd, "decoder.decoder_norm", d["decoder_norm"])
     _ln(sd, "decoder.mask_norm", d["mask_norm"])
     return sd
+
+
+def state_dict_from_jax(model_name: str, backbone: str, params: Dict,
+                        batch_stats: Dict, pspnet_clean: bool = True
+                        ) -> Dict[str, torch.Tensor]:
+    """The port's ``state_dict`` for ``build_model(model_name, backbone,
+    ..., pspnet_clean)`` from JAX variables, by model name."""
+    if model_name == "UperNetForSemanticSegmentation":
+        return upernet_state_dict_from_jax(params, batch_stats,
+                                           backbone.split("-")[1])
+    if model_name == "SegMenter":
+        from robseg_torch.models import SEGMENTER_VARIANTS
+        v = SEGMENTER_VARIANTS[backbone]
+        return segmenter_state_dict_from_jax(
+            params, v["n_layers"], v.get("distilled", False))
+    if model_name == "PSPNet":
+        return pspnet_state_dict_from_jax(params, batch_stats, pspnet_clean)
+    if model_name == "DeepLabV3":
+        return deeplab_state_dict_from_jax(params, batch_stats)
+    if model_name in ("PSPNet_DDCAT", "DeepLabV3_DDCAT"):
+        return ddcat_state_dict_from_jax(params, batch_stats)
+    raise ValueError(f"Unknown model {model_name!r}")
+
+
+def load_params_npz(path: str) -> Dict:
+    """A JAX ``save_params_npz`` file -> nested dict of numpy arrays."""
+    tree: Dict = {}
+    with np.load(path) as data:
+        for key in data.files:
+            node = tree
+            *parents, leaf = key.split("/")
+            for k in parents:
+                node = node.setdefault(k, {})
+            node[leaf] = data[key]
+    return tree
+
+
+def npz_state_dict(path: str, model_name: str, backbone: str = "",
+                   pspnet_clean: bool = True) -> Dict[str, torch.Tensor]:
+    """The port's ``state_dict`` from a JAX trainer's ``.npz`` (and its
+    ``.stats.npz``, the BatchNorm statistics, where the model has any)."""
+    params = load_params_npz(path)
+    stats_path = str(path)[:-len(".npz")] + ".stats.npz"
+    stats = load_params_npz(stats_path) if os.path.exists(stats_path) else {}
+    return state_dict_from_jax(model_name, backbone, params, stats,
+                               pspnet_clean=pspnet_clean)

@@ -1,7 +1,11 @@
-"""PASCAL-VOC and ADE20K val data for the SEA CLI (numpy and PIL)."""
+"""PASCAL-VOC, VOC-aug, ADE20K (val) and synthetic data, train and val
+(numpy, PIL and scipy)."""
 
 from robseg_torch.data.datasets import (  # noqa: F401
-    ADE20KSegmentation, VOCSegmentation, get_segmentation_dataset)
-from robseg_torch.data.sampler import simple_eval_loader  # noqa: F401
+    DATASETS, ADE20KSegmentation, SyntheticSegmentation, VOCAugSegmentation,
+    VOCSegmentation, get_segmentation_dataset)
+from robseg_torch.data.prefetch import PrefetchIterator, prefetch  # noqa: F401
+from robseg_torch.data.sampler import (  # noqa: F401
+    IterationBasedLoader, ShardedEpochSampler, simple_eval_loader)
 from robseg_torch.data.transforms import (  # noqa: F401
-    to_float_chw_last, val_sync_transform)
+    to_float_chw_last, train_sync_transform, val_sync_transform)

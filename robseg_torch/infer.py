@@ -32,6 +32,7 @@ from robseg_torch import kernels
 from robseg_torch.attacks.sea import SEA_LOSSES, eval_performance, run_sea
 from robseg_torch.config import (dataset_eval_geometry, load_config,
                                  model_display_name, resolve_device)
+from robseg_torch.convert import npz_state_dict
 from robseg_torch.data import get_segmentation_dataset, simple_eval_loader
 from robseg_torch.models import ModelBundle, build_model
 from robseg_torch.models.vit import resize_pos_embed
@@ -83,16 +84,19 @@ def build_eval_model(cfg, n_cls: int, crop_size) -> torch.nn.Module:
 
 
 def load_weights(module: torch.nn.Module, ckpt_path: str,
-                 model_name: str = "UperNetForSemanticSegmentation") -> None:
+                 model_name: str = "UperNetForSemanticSegmentation",
+                 backbone: str = "ConvNeXt-T_CVST") -> None:
     """A reference PyTorch ``.pth`` state_dict loads directly (strict), with
     the ``module.`` / ``base_model.`` prefixes stripped as the JAX
     converters strip them; a Segmenter's position embedding is resampled
-    to the model's native grid, as ``convert_vit_encoder`` does."""
+    to the model's native grid, as ``convert_vit_encoder`` does. A JAX
+    trainer's ``.npz`` (with its ``.stats.npz`` BatchNorm statistics
+    beside it) goes through ``convert/from_jax.py::npz_state_dict``, as
+    ``tools/infer.py:120-124`` reads it."""
     if str(ckpt_path).endswith(".npz"):
-        raise NotImplementedError(
-            ".npz (JAX) checkpoints: convert them with the "
-            "robseg_torch.convert functions and save a .pth; direct .npz "
-            "loading is a later slice (ROADMAP.md)")
+        module.load_state_dict(npz_state_dict(ckpt_path, model_name,
+                                              backbone), strict=True)
+        return
     if model_name not in PTH_MODELS:
         raise ValueError(
             f"{model_name}: no .pth loader. The JAX package converts "
@@ -121,7 +125,8 @@ def parse_args(argv=None):
     parser.add_argument("--no-adversarial", dest="adversarial",
                         action="store_false")
     parser.add_argument("--ckpt", type=str, default=None,
-                        help=".pth state_dict (overrides EVAL.MODEL_PATH)")
+                        help=".pth state_dict or JAX .npz params "
+                             "(overrides EVAL.MODEL_PATH)")
     parser.add_argument("--precision", type=str, default="default",
                         choices=["default", "bf16", "f32"],
                         help=PRECISION_HELP)
@@ -160,7 +165,8 @@ def main(argv=None):
     module = build_eval_model(cfg, n_cls, crop_size)
     ckpt_path = args.ckpt or test_cfg.get("MODEL_PATH")
     if ckpt_path and os.path.exists(str(ckpt_path)):
-        load_weights(module, ckpt_path, cfg["MODEL"]["NAME"])
+        load_weights(module, ckpt_path, cfg["MODEL"]["NAME"],
+                     test_cfg.get("BACKBONE", cfg["MODEL"].get("BACKBONE")))
     else:
         print(f"WARNING: no checkpoint at {ckpt_path!r}; "
               "evaluating random init")

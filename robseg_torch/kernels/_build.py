@@ -141,3 +141,17 @@ def check(err: int, name: str) -> None:
     ``cudaGetLastError()`` after the launches)."""
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+
+
+def refuse_weight_grads(ctx, first: int, name: str, stop=None) -> None:
+    """Raise when autograd asks a kernel's ``backward`` for the gradient of
+    an argument in positions ``first:stop`` (the weights): the kernels
+    give input gradients only, and a ``None`` there would drop the weight
+    gradients silently. Detached (or frozen) weights ask for none."""
+    if any(ctx.needs_input_grad[first:stop]):
+        raise RuntimeError(
+            f"{name}: the kernel gives input gradients only, and a weight "
+            "requires grad. Differentiate with respect to the weights "
+            "through the plain module (fused=False); pass detached weights "
+            "to the kernel path (robseg_torch.train attacks through "
+            "torch.func.functional_call with detached parameters)")

@@ -204,9 +204,10 @@ _DX_CUDA = {torch.float32: convnext_block_dx_cuda,
 
 
 class ConvNeXtBlockFn(torch.autograd.Function):
-    """Forward and input gradient of the block; ``None`` for every
-    parameter. CUDA tensors go through the kernels, CPU tensors through the
-    plain versions."""
+    """Forward and input gradient of the block; a parameter that requires
+    grad makes the backward raise (``_build.refuse_weight_grads``). CUDA
+    tensors go through the kernels, CPU tensors through the plain
+    versions."""
 
     @staticmethod
     def forward(ctx, x, dw, dwb, ls, lb, w1, b1, w2, b2, gamma):
@@ -217,6 +218,7 @@ class ConvNeXtBlockFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy):
+        _build.refuse_weight_grads(ctx, 1, "convnext_block")
         x, *params = ctx.saved_tensors
         fn = _DX_CUDA.get(x.dtype, _DX_CUDA[torch.float32]) if x.is_cuda \
             else convnext_block_dx_plain

@@ -202,7 +202,8 @@ convnext_mlp_dx_cuda.launches = 0
 
 class ConvNeXtMlpFn(torch.autograd.Function):
     """Forward and input gradient through the kernels (``use_kernel``) or
-    the plain versions; ``None`` for every parameter."""
+    the plain versions; a parameter that requires grad makes the backward
+    raise (``_build.refuse_weight_grads``)."""
 
     @staticmethod
     def forward(ctx, use_kernel, save_h, bf16, y, ls, lb, w1, b1, w2, b2,
@@ -220,6 +221,7 @@ class ConvNeXtMlpFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gout):
+        _build.refuse_weight_grads(ctx, 4, "convnext_mlp")
         y, ls, lb, w1, b1, w2, gamma, *h = ctx.saved_tensors
         fn = convnext_mlp_dx_cuda if ctx.use_kernel else convnext_mlp_dx_plain
         dx = fn(y, gout.contiguous(), ls, lb, w1, b1, w2, gamma,

@@ -222,7 +222,8 @@ _DX_CUDA = {torch.float32: fpn_concat_conv_dx_cuda,
 
 class FpnConcatConvFn(torch.autograd.Function):
     """Forward and input gradients through the kernels (``use_kernel``) or
-    the plain versions; ``None`` for ``w``, ``s`` and ``t``."""
+    the plain versions; ``w``, ``s`` or ``t`` requiring grad makes the
+    backward raise (``_build.refuse_weight_grads``)."""
 
     @staticmethod
     def forward(ctx, use_kernel, w, s, t, *xs):
@@ -235,6 +236,7 @@ class FpnConcatConvFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy):
+        _build.refuse_weight_grads(ctx, 1, "fpn_concat_conv", stop=4)
         w, s, out = ctx.saved_tensors
         dx = _DX_CUDA.get(dy.dtype, fpn_concat_conv_dx_cuda) \
             if ctx.use_kernel else fpn_concat_conv_dx_plain

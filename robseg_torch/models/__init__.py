@@ -3,12 +3,15 @@
 Port of ``robseg_tpu/models/__init__.py``: ``build_model`` builds each of
 the six model names the JAX package builds (UperNet-ConvNeXt, Segmenter-ViT,
 PSPNet, PSPNet-DDCAT, DeepLabV3, DeepLabV3-DDCAT), in eval mode, and
-``ModelBundle`` holds a module with its ``logits_fn``.
+``ModelBundle`` holds a module with its ``logits_fn``. ``ModelBundle``
+freezes the module it is given, so the trainer never hands it the module
+it trains.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 import torch.nn as nn
@@ -67,23 +70,32 @@ def create_segmenter(backbone: str, n_cls: int, image_size=(512, 512)
 
 
 def build_model(model_name: str, backbone: str, n_cls: int,
-                image_size=(512, 512), pspnet_clean: bool = True
-                ) -> nn.Module:
+                image_size=(512, 512), pspnet_clean: bool = True,
+                fused: Optional[bool] = None) -> nn.Module:
     """The module for a (MODEL.NAME, BACKBONE, N_CLS) triple, in eval mode.
 
-    UperNet always runs the split bottleneck and the block kernel, the
-    configuration ``robseg_tpu``'s ``build_model(fused=True)`` selects; the
+    UperNet runs the split bottleneck and the block kernel, the
+    configuration ``robseg_tpu``'s ``build_model(fused=True)`` selects,
+    unless ``fused=False``: then it is the plain module
+    (``fused_mlp=False``, ``fused_head=False``, JAX's ``fused=False``), the
+    one that trains. ``fused=None`` is the default of each name (fused for
+    UperNet); ``fused=True`` on another name raises, as JAX's does. The
     other fused settings are the module's arguments
     (``robseg_torch.bench_fused`` builds them). ``image_size`` is the
     Segmenter's native grid (the dataset crop); ``pspnet_clean`` picks
     PSPNet's deep-base 3-conv stem (True) or the 7x7 stem of the robust
     checkpoints.
     """
+    if fused and model_name != "UperNetForSemanticSegmentation":
+        raise ValueError(
+            f"fused=True is only supported for UperNet (ConvNeXt backbone); "
+            f"got MODEL.NAME={model_name!r}")
     if model_name == "UperNetForSemanticSegmentation":
         variant = backbone.split("-")[1]
+        plain = fused is False
         module = UperNetForSemanticSegmentation(
-            variant, n_cls, fused_mlp=True, fused_mlp_mode="block",
-            fused_head="split")
+            variant, n_cls, fused_mlp=not plain, fused_mlp_mode="block",
+            fused_head=False if plain else "split")
     elif model_name == "SegMenter":
         module = create_segmenter(backbone, n_cls, image_size)
     elif model_name == "PSPNet":

@@ -28,7 +28,13 @@ routing JAX gives them:
     as JAX does (its kernel's weights outgrow the TPU's VMEM there);
   * ``fused_mlp=False``: the unfused block in plain ops.
 
-The parameters are the same in every setting.
+The parameters are the same in every setting. Only the plain block
+(``fused_mlp=False``) trains: it runs DropPath at the rates
+``np.linspace(0, drop_path_rate, sum(depths))`` (JAX ``:209-227``) and
+gets its weight gradients from autograd. A block with ``fused_mlp=True``
+raises in train mode (the kernels give input gradients only); JAX routes
+it to XLA there (``:71-78``), while the port's trainer builds the plain
+module for the update and the kernels' twin for the attack.
 
 Under ``--precision bf16`` (parameters and input bf16) the dtype trail is
 JAX's: the block kernel and the plain block keep bf16, while an MLP-tail
@@ -41,6 +47,7 @@ from __future__ import annotations
 
 from typing import List
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -48,7 +55,7 @@ import torch.nn.functional as F
 from robseg_torch.kernels.convnext_block import convnext_block
 from robseg_torch.kernels.convnext_mlp import MODES as MLP_MODES
 from robseg_torch.kernels.convnext_mlp import convnext_mlp
-from robseg_torch.models.layers import (LN_EPS, Conv2d, LayerNorm,
+from robseg_torch.models.layers import (LN_EPS, Conv2d, DropPath, LayerNorm,
                                         LayerNorm2d, Linear)
 
 # [depths, dims, aux_head_channels, drop_path_rate]
@@ -67,14 +74,12 @@ MLP_KERNEL_MAX_DIM = 384  # robseg_tpu/models/convnext.py:131
 
 
 class ConvNeXtBlock(nn.Module):
-    """dwconv7x7 -> LN -> Linear 4x -> GELU -> Linear -> gamma, residual.
-
-    Eval only, in every setting: the kernels give input gradients and no
-    weight gradients, and the port has no DropPath. Train mode raises.
-    """
+    """dwconv7x7 -> LN -> Linear 4x -> GELU -> Linear -> gamma ->
+    DropPath, residual. Train mode needs ``fused_mlp=False``."""
 
     def __init__(self, dim: int, layer_scale_init_value: float = 1.0,
-                 fused_mlp: bool = True, fused_mlp_mode: str = "block"):
+                 fused_mlp: bool = True, fused_mlp_mode: str = "block",
+                 drop_path: float = 0.0):
         super().__init__()
         if fused_mlp_mode not in FUSED_MLP_MODES:
             raise ValueError(f"unknown fused_mlp_mode {fused_mlp_mode!r}; "
@@ -86,14 +91,16 @@ class ConvNeXtBlock(nn.Module):
         self.pwconv1 = Linear(dim, 4 * dim)
         self.pwconv2 = Linear(4 * dim, dim)
         self.gamma = nn.Parameter(torch.full((dim,), layer_scale_init_value))
+        self.drop_path = DropPath(drop_path)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: channels-last (B, H, W, C)."""
-        if self.training:
+        if self.training and self.fused_mlp:
             raise RuntimeError(
-                "ConvNeXtBlock runs in eval mode only: its kernel gives no "
-                "weight gradients. Training (PIR-AT) is a later port slice "
-                "(ROADMAP.md).")
+                "ConvNeXtBlock with fused_mlp=True runs in eval mode only: "
+                "its kernels give input gradients and no weight gradients. "
+                "Train the plain module (build_model(..., fused=False)) and "
+                "attack through the fused one, as robseg_torch.train does.")
         if self.fused_mlp and self.fused_mlp_mode == "block":
             return convnext_block(
                 x, self.dwconv.weight, self.dwconv.bias, self.norm.weight,
@@ -108,7 +115,7 @@ class ConvNeXtBlock(nn.Module):
         else:
             y = self.gamma * self.pwconv2(F.gelu(self.pwconv1(self.norm(y)),
                                                  approximate="none"))
-        return x + y
+        return x + self.drop_path(y)
 
 
 class CvStStem(nn.Module):
@@ -135,7 +142,8 @@ class ConvNeXt(nn.Module):
         super().__init__()
         if variant not in CONVNEXT_SETTINGS:
             raise ValueError(f"unknown ConvNeXt variant {variant!r}")
-        depths, dims, _, _ = CONVNEXT_SETTINGS[variant]
+        depths, dims, _, drop_path_rate = CONVNEXT_SETTINGS[variant]
+        dp_rates = np.linspace(0.0, drop_path_rate, sum(depths))
         if "CVST" in variant:
             stem = CvStStem(dims[0] // 2)
         else:
@@ -146,9 +154,10 @@ class ConvNeXt(nn.Module):
                           Conv2d(dims[i - 1], dims[i], 2, stride=2))
             for i in range(1, 4)])
         self.stages = nn.ModuleList([
-            nn.Sequential(*[ConvNeXtBlock(dims[i], layer_scale_init_value,
-                                          fused_mlp, fused_mlp_mode)
-                            for _ in range(depths[i])])
+            nn.Sequential(*[ConvNeXtBlock(
+                dims[i], layer_scale_init_value, fused_mlp, fused_mlp_mode,
+                float(dp_rates[sum(depths[:i]) + j]))
+                for j in range(depths[i])])
             for i in range(4)])
         for i in range(4):
             self.add_module(f"norm{i}", LayerNorm(dims[i], eps=LN_EPS))

@@ -1,7 +1,7 @@
 """PSPNet, PSPNet-DDCAT, DeepLabV3 and DeepLabV3-DDCAT over a dilated
 ResNet-50.
 
-Port of ``robseg_tpu/models/pspnet.py`` in its eval form, on NCHW tensors:
+Port of ``robseg_tpu/models/pspnet.py``, on NCHW tensors:
 
   * ``PPM``: pyramid pooling at bins (1, 2, 3, 6), each bin a 1x1 conv,
     BatchNorm and ReLU, upsampled back;
@@ -12,10 +12,14 @@ Port of ``robseg_tpu/models/pspnet.py`` in its eval form, on NCHW tensors:
   * the output resized to ((H - 1) / 8 * zoom + 1) along each axis, which is
     the input size at zoom 8; the input must satisfy (H - 1) % 8 == 0.
 
-Every resize here is bilinear with align_corners=True. In eval, a DDCAT
-model returns its normal branch, and the auxiliary heads (and the DDCAT
-models' adversarial and mask heads) do not run: they exist so that
-checkpoints load with strict=True.
+Every resize here is bilinear with align_corners=True. ``PSPNet(x,
+labels)`` and ``DeepLabV3(x, labels)`` return ``(main_loss, aux_loss,
+logits)`` with the aux head on ``layer3``'s output (JAX ``:127-153``); in
+train mode (or with ``indicate=1``) a DDCAT model returns ``(final, aux,
+mask, normal)``, ``final`` taking the adversarial branch where the
+2-channel mask head's argmax is 1 (``:175-210``); in eval it returns its
+normal branch. Train mode runs the BatchNorms on batch statistics and
+the heads' ``Dropout2d`` (``models/layers.py``).
 
 Module names: ``PSPNet`` has the reference's layout (``layer0`` to
 ``layer4``, ``ppm.features.{i}``, ``cls``, ``aux``), the keys
@@ -28,14 +32,15 @@ tree (``backbone``, ``ppm``, ``aspp``, ``cls``, ``cls1``, ``cls2``,
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from robseg_torch.models.layers import AdaptiveAvgPool, Conv2d
+from robseg_torch.models.layers import AdaptiveAvgPool, Conv2d, Dropout2d
 from robseg_torch.models.resnet import ResNetStages, bn
+from robseg_torch.ops.losses import segmentation_cross_entropy
 from robseg_torch.ops.resize import adaptive_avg_pool, resize_bilinear
 
 
@@ -100,7 +105,7 @@ def cls_head(in_ch: int, mid: int, classes: int, kernel: int = 3,
     reference's Sequential (keys ``.0``, ``.1``, ``.4``)."""
     return nn.Sequential(
         Conv2d(in_ch, mid, kernel, padding=kernel // 2, bias=False), bn(mid),
-        nn.ReLU(), nn.Dropout2d(dropout), Conv2d(mid, classes, 1))
+        nn.ReLU(), Dropout2d(dropout), Conv2d(mid, classes, 1))
 
 
 def zoom_hw(x: torch.Tensor, zoom_factor: int) -> Tuple[int, int]:
@@ -115,8 +120,29 @@ def _zoom(logits: torch.Tensor, out_hw, zoom_factor: int) -> torch.Tensor:
     return resize_bilinear(logits, out_hw, align_corners=True)
 
 
+def _losses(logits, aux, labels):
+    """(main_loss, aux_loss, logits) of the loss branch."""
+    return (segmentation_cross_entropy(logits, labels, -1),
+            segmentation_cross_entropy(aux, labels, -1), logits)
+
+
+def _ddcat_out(self, feat, x3, out_hw, indicate: int):
+    """The DDCAT heads: ``normal`` in eval, else ``(final, aux, mask,
+    normal)``."""
+    normal = _zoom(self.cls1(feat), out_hw, self.zoom_factor)
+    if not (self.training or indicate == 1):
+        return normal
+    adver = _zoom(self.cls2(feat), out_hw, self.zoom_factor)
+    mask = _zoom(self.mask1(feat), out_hw, self.zoom_factor)
+    sel = mask.argmax(1, keepdim=True).to(normal.dtype)
+    final = sel * adver + (1.0 - sel) * normal
+    aux = _zoom(self.aux_cls1(x3), out_hw, self.zoom_factor)
+    return final, aux, mask, normal
+
+
 class PSPNet(nn.Module):
-    """PSPNet-ResNet50: ``forward(x)`` returns the logits."""
+    """PSPNet-ResNet50: ``forward(x)`` returns the logits,
+    ``forward(x, labels)`` ``(main_loss, aux_loss, logits)``."""
 
     def __init__(self, classes: int = 21, bins: Sequence[int] = (1, 2, 3, 6),
                  dropout: float = 0.1, zoom_factor: int = 8,
@@ -135,16 +161,23 @@ class PSPNet(nn.Module):
         self.cls = cls_head(fea_dim, 512, classes, 3, dropout)
         self.aux = cls_head(1024, 256, classes, 3, dropout)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                labels: Optional[torch.Tensor] = None):
         out_hw = zoom_hw(x, self.zoom_factor)
-        x = self.layer4(self.layer3(self.layer2(self.layer1(self.layer0(x)))))
+        x3 = self.layer3(self.layer2(self.layer1(self.layer0(x))))
+        x = self.layer4(x3)
         if self.use_ppm:
             x = self.ppm(x)
-        return _zoom(self.cls(x), out_hw, self.zoom_factor)
+        logits = _zoom(self.cls(x), out_hw, self.zoom_factor)
+        if labels is None:
+            return logits
+        return _losses(logits, _zoom(self.aux(x3), out_hw, self.zoom_factor),
+                       labels)
 
 
 class PSPNetDDCAT(nn.Module):
-    """Dual-branch DDCAT PSPNet (7x7 stem); eval returns the normal branch.
+    """Dual-branch DDCAT PSPNet (7x7 stem); eval returns the normal branch,
+    train mode or ``indicate=1`` the ``(final, aux, mask, normal)`` tuple.
     ``backbone_layers``, ``backbone_planes``, ``head_width`` and
     ``aux_width`` are the JAX module's geometry fields."""
 
@@ -165,14 +198,15 @@ class PSPNetDDCAT(nn.Module):
         self.mask1 = cls_head(fea, head_width, 2, 3, dropout)
         self.aux_cls1 = cls_head(c3, aux_width, classes, 3, dropout)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, indicate: int = 0):
         out_hw = zoom_hw(x, self.zoom_factor)
-        _, x4 = self.backbone(x)
-        return _zoom(self.cls1(self.ppm(x4)), out_hw, self.zoom_factor)
+        x3, x4 = self.backbone(x)
+        return _ddcat_out(self, self.ppm(x4), x3, out_hw, indicate)
 
 
 class DeepLabV3(nn.Module):
-    """DeepLabV3-ResNet50 with ASPP: ``forward(x)`` returns the logits."""
+    """DeepLabV3-ResNet50 with ASPP: ``forward(x)`` returns the logits,
+    ``forward(x, labels)`` ``(main_loss, aux_loss, logits)``."""
 
     def __init__(self, classes: int = 21,
                  atrous_rates: Sequence[int] = (6, 12, 18),
@@ -186,15 +220,21 @@ class DeepLabV3(nn.Module):
         self.cls = cls_head(fea, 256, classes, 1, dropout)
         self.aux = cls_head(1024, 256, classes, 1, dropout)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                labels: Optional[torch.Tensor] = None):
         out_hw = zoom_hw(x, self.zoom_factor)
-        _, x4 = self.backbone(x)
-        return _zoom(self.cls(self.aspp(x4)), out_hw, self.zoom_factor)
+        x3, x4 = self.backbone(x)
+        logits = _zoom(self.cls(self.aspp(x4)), out_hw, self.zoom_factor)
+        if labels is None:
+            return logits
+        return _losses(logits, _zoom(self.aux(x3), out_hw, self.zoom_factor),
+                       labels)
 
 
 class DeepLabV3DDCAT(nn.Module):
     """Dual-branch DDCAT DeepLabV3 (7x7 stem, 1x1 heads); eval returns the
-    normal branch."""
+    normal branch, train mode or ``indicate=1`` the ``(final, aux, mask,
+    normal)`` tuple."""
 
     def __init__(self, classes: int = 21,
                  atrous_rates: Sequence[int] = (6, 12, 18),
@@ -209,7 +249,7 @@ class DeepLabV3DDCAT(nn.Module):
         self.mask1 = cls_head(fea, 256, 2, 1, dropout)
         self.aux_cls1 = cls_head(1024, 256, classes, 1, dropout)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, indicate: int = 0):
         out_hw = zoom_hw(x, self.zoom_factor)
-        _, x4 = self.backbone(x)
-        return _zoom(self.cls1(self.aspp(x4)), out_hw, self.zoom_factor)
+        x3, x4 = self.backbone(x)
+        return _ddcat_out(self, self.aspp(x4), x3, out_hw, indicate)

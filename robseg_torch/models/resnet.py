@@ -1,6 +1,7 @@
 """Dilated ResNet (the DDCAT flavour) for PSPNet and DeepLabV3.
 
-Port of ``robseg_tpu/models/resnet.py`` in its eval form, on NCHW tensors:
+Port of ``robseg_tpu/models/resnet.py``, on NCHW tensors (train mode:
+the BatchNorms of ``models/layers.py`` on batch statistics):
 bottleneck blocks with the stride on conv2, the deep-base 3-conv stem
 (3x3 convs of 64, 64 and 128 channels) or the 7x7 stem, a 3x3 max pool,
 and the segmentation nets' dilation on layers 3 and 4 (dilation 2 and 4 at

@@ -1,7 +1,6 @@
 """Segmenter: the ViT encoder and a mask-transformer (or linear) decoder.
 
-Port of ``robseg_tpu/models/segmenter.py`` in its eval form, on NCHW
-tensors:
+Port of ``robseg_tpu/models/segmenter.py``, on NCHW tensors:
 
   * ``MaskTransformer``: project the patch tokens, append the learned
     class embeddings, transformer blocks, LayerNorm, split patches and
@@ -10,6 +9,11 @@ tensors:
   * ``SegMenter``: pad the input to a multiple of the patch size, encode,
     drop the class/distillation tokens, decode, resize bilinearly
     (align_corners=False) to the padded size and cut the padding off.
+
+In train mode the encoder runs DropPath (rate ``drop_path_rate``
+spread by linspace over its blocks, 0.1 in the zoo) with the encoder
+``dropout`` (0 in the zoo), and the decoder's blocks run dropout 0.1 and
+no DropPath: the JAX module's defaults (``segmenter.py:53-70``).
 
 Module and parameter names are the reference ``state_dict``'s
 (``decoder.proj_dec``, ``decoder.cls_emb``, ``decoder.proj_patch``, ...),
@@ -51,7 +55,8 @@ class MaskTransformer(nn.Module):
 
     def __init__(self, n_cls: int, patch_size: int, d_encoder: int,
                  n_layers: int = 2, d_model: int = 384, n_heads: int = 6,
-                 d_ff: int = 1536, drop_path_rate: float = 0.0):
+                 d_ff: int = 1536, drop_path_rate: float = 0.0,
+                 dropout: float = 0.1):
         super().__init__()
         self.n_cls = n_cls
         self.patch_size = patch_size
@@ -62,7 +67,7 @@ class MaskTransformer(nn.Module):
             torch.empty(1, n_cls, d_model)))
         dpr = np.linspace(0.0, drop_path_rate, n_layers)
         self.blocks = nn.ModuleList([
-            Block(d_model, n_heads, d_ff, float(dpr[i]))
+            Block(d_model, n_heads, d_ff, float(dpr[i]), dropout)
             for i in range(n_layers)])
         self.decoder_norm = LayerNorm(d_model, eps=LN_EPS)
         self.proj_patch = nn.Parameter(scale * torch.randn(d_model, d_model))
@@ -94,14 +99,15 @@ class SegMenter(nn.Module):
                  d_model: int = 384, n_heads: int = 6,
                  drop_path_rate: float = 0.1, distilled: bool = False,
                  decoder_name: str = "mask_transformer",
-                 decoder_n_layers: int = 2):
+                 decoder_n_layers: int = 2, dropout: float = 0.0):
         super().__init__()
         self.patch_size = patch_size
         self.num_extra = 1 + int(distilled)
         self.encoder = VisionTransformer(
             image_size=image_size, patch_size=patch_size, n_layers=n_layers,
             d_model=d_model, d_ff=4 * d_model, n_heads=n_heads,
-            drop_path_rate=drop_path_rate, distilled=distilled)
+            drop_path_rate=drop_path_rate, distilled=distilled,
+            dropout=dropout)
         if decoder_name == "mask_transformer":
             self.decoder = MaskTransformer(
                 n_cls, patch_size, d_encoder=d_model,

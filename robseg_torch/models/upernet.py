@@ -1,7 +1,9 @@
 """UperNet (PSP + FPN decode head, FCN auxiliary head) over ConvNeXt.
 
-Port of ``robseg_tpu/models/upernet.py`` in its eval form. The
-``fpn_bottleneck`` runs in one of JAX's ``fused_head`` settings
+Port of ``robseg_tpu/models/upernet.py``. With labels the model returns
+``(loss, logits)``, loss = CE(main) + 0.4 CE(aux) with ignore -1, the aux
+head on ``feats[2]`` resized with align_corners=False (JAX ``:145-167``).
+The ``fpn_bottleneck`` runs in one of JAX's ``fused_head`` settings
 (``upernet.py:73-111``):
 
   * ``"split"`` (the port's default, the main path): four per-source 3x3
@@ -10,7 +12,9 @@ Port of ``robseg_tpu/models/upernet.py`` in its eval form. The
   * ``True`` or ``"pallas"``: the same function through the FPN
     concat-conv kernel (``kernels/fpn_conv.py``), bf16 operands, output in
     the maps' dtype;
-  * ``False``: the concat followed by the ``ConvModule``.
+  * ``False``: the concat followed by the ``ConvModule``, the only
+    setting that trains: the other two fold the eval BatchNorm, so they
+    raise in train mode (``upernet.py:69-74``).
 
 The BatchNorm fold ``s, t`` is computed in float32 whatever the
 parameters' dtype (JAX ``upernet.py:95-96``); the split bottleneck casts
@@ -23,7 +27,7 @@ Module names follow the reference ``state_dict``
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
@@ -32,6 +36,7 @@ import torch.nn.functional as F
 from robseg_torch.kernels.fpn_conv import fpn_concat_conv
 from robseg_torch.models.convnext import CONVNEXT_SETTINGS, ConvNeXt
 from robseg_torch.models.layers import AdaptiveAvgPool, Conv2d, ConvModule
+from robseg_torch.ops.losses import segmentation_cross_entropy
 from robseg_torch.ops.resize import resize_bilinear
 
 FUSED_HEADS = (False, "split", True, "pallas")
@@ -112,6 +117,10 @@ class UperNetHead(nn.Module):
         size = fpn_outs[0].shape[-2:]
         fpn_outs = [fpn_outs[0]] + [resize_bilinear(f, size)
                                     for f in fpn_outs[1:]]
+        if self.fused_head and self.training:
+            raise RuntimeError(
+                f"fused_head={self.fused_head!r} folds the eval BatchNorm "
+                "and runs in eval mode only; train with fused_head=False")
         if self.fused_head == "split":
             x = self._split_bottleneck(fpn_outs)
         elif self.fused_head:
@@ -122,8 +131,8 @@ class UperNetHead(nn.Module):
 
 
 class UperNetFCNHead(nn.Module):
-    """Auxiliary FCN head on ``feats[in_index]``. The eval forward does not
-    run it; it exists so reference checkpoints load with strict=True."""
+    """Auxiliary FCN head on ``feats[in_index]``; it runs only in the loss
+    branch (``forward(x, labels)``)."""
 
     def __init__(self, num_classes: int, in_channels: int = 384,
                  in_index: int = 2, channels: int = 256):
@@ -138,11 +147,13 @@ class UperNetFCNHead(nn.Module):
 
 class UperNetForSemanticSegmentation(nn.Module):
     """Full UperNet-ConvNeXt: ``forward(x)`` on NCHW images in [0, 1]
-    returns NCHW logits bilinearly resized to the input size. Eval mode
-    only (the ConvNeXt blocks raise in train mode). ``fused_mlp``,
+    returns NCHW logits bilinearly resized to the input size;
+    ``forward(x, labels)`` returns ``(loss, logits)``. ``fused_mlp``,
     ``fused_mlp_mode`` and ``fused_head`` are JAX's settings (see
     ``models/convnext.py`` and ``UperNetHead``); the defaults are the main
-    path's block kernel and split bottleneck."""
+    path's block kernel and split bottleneck, eval only. Train mode needs
+    ``fused_mlp=False, fused_head=False`` (``build_model(...,
+    fused=False)``)."""
 
     def __init__(self, backbone_variant: str = "T_CVST",
                  num_classes: int = 21, fused_mlp: bool = True,
@@ -156,6 +167,13 @@ class UperNetForSemanticSegmentation(nn.Module):
                                        fused_head=fused_head)
         self.auxiliary_head = UperNetFCNHead(num_classes, in_channels=aux_ch)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        logits = self.decode_head(self.backbone(x))
-        return resize_bilinear(logits, x.shape[-2:])
+    def forward(self, x: torch.Tensor,
+                labels: Optional[torch.Tensor] = None):
+        feats = self.backbone(x)
+        logits = resize_bilinear(self.decode_head(feats), x.shape[-2:])
+        if labels is None:
+            return logits
+        aux = resize_bilinear(self.auxiliary_head(feats), x.shape[-2:])
+        loss = (segmentation_cross_entropy(logits, labels, -1)
+                + 0.4 * segmentation_cross_entropy(aux, labels, -1))
+        return loss, logits

@@ -1,12 +1,15 @@
 """Plain ViT encoder of the Segmenter family (NCHW image in, tokens out).
 
-Port of ``robseg_tpu/models/vit.py`` in its eval form: patch-embed conv, a
+Port of ``robseg_tpu/models/vit.py``: patch-embed conv, a
 class token (and a distillation token for the DeiT variants), an additive
 position embedding resized bilinearly when the token grid differs from the
 native one, pre-norm transformer blocks and a final LayerNorm. Module and
 parameter names are the reference ``state_dict``'s
 (``encoder.patch_embed.proj``, ``encoder.blocks.{i}.attn.qkv``, ...), the
-keys ``robseg_tpu/convert/torch2jax.py::convert_vit_encoder`` reads.
+keys ``robseg_tpu/convert/torch2jax.py::convert_vit_encoder`` reads. In
+train mode the blocks run DropPath at ``np.linspace(0, drop_path_rate,
+n_layers)`` and, where ``dropout > 0``, dropout after the position
+embedding, the attention projection, GELU and ``fc2`` (JAX ``:57-97``).
 
 Attention is written out as ``(q @ k^T) * head_dim**-0.5``, softmax, then
 ``@ v``: the reference's order, which the JAX module keeps on purpose
@@ -27,8 +30,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from robseg_torch.models.layers import (Conv2d, DropPath, LayerNorm, Linear,
-                                        trunc_normal_)
+from robseg_torch.models.layers import (Conv2d, DropPath, Dropout, LayerNorm,
+                                        Linear, trunc_normal_)
 from robseg_torch.ops.resize import resize_bilinear
 
 LN_EPS = 1e-5
@@ -53,11 +56,12 @@ def resize_pos_embed(posemb: torch.Tensor, grid_old, grid_new,
 class Attention(nn.Module):
     """Multi-head self-attention, the reference's order of operations."""
 
-    def __init__(self, dim: int, heads: int):
+    def __init__(self, dim: int, heads: int, dropout: float = 0.0):
         super().__init__()
         self.heads = heads
         self.qkv = Linear(dim, dim * 3)
         self.proj = Linear(dim, dim)
+        self.drop = Dropout(dropout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, n, c = x.shape
@@ -68,33 +72,34 @@ class Attention(nn.Module):
         attn = torch.matmul(q, k.transpose(-2, -1)) * (hd ** -0.5)
         attn = attn.softmax(dim=-1)
         y = torch.matmul(attn, v).transpose(1, 2).reshape(b, n, c)
-        return self.proj(y)
+        return self.drop(self.proj(y))
 
 
 class FeedForward(nn.Module):
     """fc1 -> exact GELU -> fc2."""
 
-    def __init__(self, dim: int, hidden_dim: int):
+    def __init__(self, dim: int, hidden_dim: int, dropout: float = 0.0):
         super().__init__()
         self.fc1 = Linear(dim, hidden_dim)
         self.fc2 = Linear(hidden_dim, dim)
+        self.drop = Dropout(dropout)
         trunc_normal_(self.fc1.weight)
         trunc_normal_(self.fc2.weight)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(F.gelu(self.fc1(x)))
+        return self.drop(self.fc2(self.drop(F.gelu(self.fc1(x)))))
 
 
 class Block(nn.Module):
     """Pre-norm transformer block."""
 
     def __init__(self, dim: int, heads: int, mlp_dim: int,
-                 drop_path: float = 0.0):
+                 drop_path: float = 0.0, dropout: float = 0.0):
         super().__init__()
         self.norm1 = LayerNorm(dim, eps=LN_EPS)
         self.norm2 = LayerNorm(dim, eps=LN_EPS)
-        self.attn = Attention(dim, heads)
-        self.mlp = FeedForward(dim, mlp_dim)
+        self.attn = Attention(dim, heads, dropout)
+        self.mlp = FeedForward(dim, mlp_dim, dropout)
         self.drop_path = DropPath(drop_path)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -122,7 +127,7 @@ class VisionTransformer(nn.Module):
     def __init__(self, image_size=(512, 512), patch_size: int = 16,
                  n_layers: int = 12, d_model: int = 384, d_ff: int = 1536,
                  n_heads: int = 6, drop_path_rate: float = 0.1,
-                 distilled: bool = False):
+                 distilled: bool = False, dropout: float = 0.0):
         super().__init__()
         self.patch_size = patch_size
         self.d_model = d_model
@@ -137,9 +142,10 @@ class VisionTransformer(nn.Module):
         n_native = self.native_grid[0] * self.native_grid[1] + self.num_extra
         self.pos_embed = nn.Parameter(trunc_normal_(
             torch.empty(1, n_native, d_model)))
+        self.drop = Dropout(dropout)
         dpr = np.linspace(0.0, drop_path_rate, n_layers)
         self.blocks = nn.ModuleList([
-            Block(d_model, n_heads, d_ff, float(dpr[i]))
+            Block(d_model, n_heads, d_ff, float(dpr[i]), dropout)
             for i in range(n_layers)])
         self.norm = LayerNorm(d_model, eps=LN_EPS)
 
@@ -156,7 +162,7 @@ class VisionTransformer(nn.Module):
         if x.shape[1] != pos.shape[1]:
             pos = resize_pos_embed(pos, self.native_grid, (gh, gw),
                                    self.num_extra)
-        x = x + pos
+        x = self.drop(x + pos)
         for blk in self.blocks:
             x = blk(x)
         return self.norm(x)

@@ -1,8 +1,10 @@
-"""Attack criteria on NCHW logits.
+"""Attack criteria and training losses on NCHW logits.
 
-Port of the attack half of ``robseg_tpu/ops/losses.py`` (``ATTACK_CRITERIA``,
-``:200-207``). The conventions that define the SEA attacks carry over
-exactly:
+Port of ``robseg_tpu/ops/losses.py``: the attack criteria
+(``ATTACK_CRITERIA``, ``:200-207``) and the training losses
+(``segmentation_cross_entropy``, ``ohem_cross_entropy``, ``dice_loss``,
+``get_train_loss``; ``:222-298``). The conventions that define the SEA
+attacks carry over exactly:
 
   * logits are ``(B, K, H, W)``; labels ``(B, H, W)`` int, ignore ``-1``;
   * pixelwise criteria return ``(B, H, W)`` with zeros at ignored pixels;
@@ -14,7 +16,7 @@ exactly:
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -100,3 +102,80 @@ ATTACK_CRITERIA = {
     "mask-ce-bal": masked_cross_entropy_balanced,
     "js-avg": js_loss,
 }
+
+
+# ---------------------------------------------------------------------------
+# Training losses (parity: semseg/losses.py)
+# ---------------------------------------------------------------------------
+
+def segmentation_cross_entropy(logits, target: torch.Tensor,
+                               ignore_index: int = -1,
+                               weights: Optional[torch.Tensor] = None,
+                               aux_weights=(1.0, 0.4, 0.4)) -> torch.Tensor:
+    """Mean CE over the non-ignored pixels (over their class-weight sum
+    when ``weights`` is given); a tuple of logits is the weighted sum of
+    its terms with ``aux_weights``. An all-ignored batch gives 0."""
+    if isinstance(logits, (tuple, list)):
+        return sum(w * segmentation_cross_entropy(lg, target, ignore_index,
+                                                  weights)
+                   for lg, w in zip(logits, aux_weights))
+    valid = target != ignore_index
+    per_pix = cross_entropy_pixelwise(logits, target, weights, ignore_index)
+    if weights is not None:
+        t = torch.where(valid, target, 0)
+        denom = torch.where(valid, weights.to(per_pix)[t], 0.0).sum()
+    else:
+        denom = valid.sum().to(per_pix.dtype)
+    return per_pix.sum() / denom.clamp_min(1.0)
+
+
+def ohem_cross_entropy(logits, target: torch.Tensor, ignore_index: int = -1,
+                       thresh: float = 0.7,
+                       aux_weights=(1.0, 1.0)) -> torch.Tensor:
+    """Online hard-example-mining CE in the JAX package's static-shape form:
+    sort the per-pixel losses once and keep the top max(#(loss >
+    -log(thresh)), #valid // 16)."""
+    if isinstance(logits, (tuple, list)):
+        return sum(w * ohem_cross_entropy(lg, target, ignore_index, thresh)
+                   for lg, w in zip(logits, aux_weights))
+    thresh_v = -torch.log(torch.tensor(thresh, dtype=torch.float32))
+    valid = target != ignore_index
+    n_min = valid.sum() // 16
+    loss = cross_entropy_pixelwise(logits, target, None,
+                                   ignore_index).reshape(-1)
+    loss_sorted = torch.sort(loss, descending=True).values
+    n_keep = torch.maximum((loss > thresh_v.to(loss.device)).sum(), n_min)
+    keep = torch.arange(loss.numel(), device=loss.device) < n_keep
+    return torch.where(keep, loss_sorted, 0.0).sum() / n_keep.clamp_min(1)
+
+
+def dice_loss(logits, target: torch.Tensor, delta: float = 0.5,
+              aux_weights=(1.0, 0.4, 0.4)) -> torch.Tensor:
+    """Dice loss on the raw logits (no softmax), as the reference computes
+    it; an ignored label has an all-zero one-hot row."""
+    if isinstance(logits, (tuple, list)):
+        return sum(w * dice_loss(lg, target, delta)
+                   for lg, w in zip(logits, aux_weights))
+    k = logits.shape[1]
+    valid = (target >= 0) & (target < k)
+    labels = F.one_hot(torch.where(valid, target, 0), k).to(logits.dtype)
+    labels = (labels * valid[..., None]).permute(0, 3, 1, 2)
+    axes = tuple(range(2, logits.ndim))
+    tp = (labels * logits).sum(axes)
+    fn = (labels * (1.0 - logits)).sum(axes)
+    fp = ((1.0 - labels) * logits).sum(axes)
+    dice = (tp + 1e-6) / (tp + delta * fn + (1 - delta) * fp + 1e-6)
+    return ((1.0 - dice).sum(-1) / k).mean()
+
+
+def get_train_loss(name: str = "CrossEntropy", ignore_label: int = -1,
+                   cls_weights: Optional[torch.Tensor] = None) -> Callable:
+    """Training-loss factory; parity: ``semseg/losses.py:99-109``."""
+    if name == "CrossEntropy":
+        return lambda lg, y: segmentation_cross_entropy(
+            lg, y, ignore_label, cls_weights)
+    if name == "OhemCrossEntropy":
+        return lambda lg, y: ohem_cross_entropy(lg, y, ignore_label)
+    if name == "Dice":
+        return lambda lg, y: dice_loss(lg, y)
+    raise ValueError(f"Unavailable loss function name >> {name}")

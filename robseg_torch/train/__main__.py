@@ -1,0 +1,304 @@
+"""PIR-AT training CLI of the port, on one card.
+
+Counterpart of ``tools/train.py`` (reference ``tools/train_rob_seg.py``):
+config-driven model, optimizer and schedule per family, PIR init from
+``MODEL.PRETRAINED``, iteration-based adversarial training, a log line
+every half epoch, eval and checkpoint every ``EVAL_FREQ`` epochs on
+``EVAL_BATCHES`` val batches (the tail batch padded with ignore labels),
+best-mIoU tracking that survives ``--resume``, and at the end a reload of
+the best weights and an eval on the whole val split. Weights are written
+as reference-layout ``best_model.pth`` / ``final_model.pth``, which
+``python -m robseg_torch.infer --ckpt`` reads; the resume state goes to
+``ckpts/``.
+
+Usage:
+    python -m robseg_torch.train --cfg configs/pascalvoc_convnext.yaml \
+        [--max_iters N] [--resume --run_dir DIR] [--fused_attack]
+
+The config's ``DEVICE`` picks the device (``tpu``/``gpu``/``cuda`` -> the
+CUDA card, ``cpu`` -> the CPU; no fallback). ``--fused_attack`` (UperNet)
+makes the adversarial examples through the block kernels' twin of the
+model; the update always differentiates the plain module. On exit the CLI
+prints one ``kernel launches: {...}`` JSON line.
+"""
+
+from __future__ import annotations
+
+import argparse
+import datetime
+import json
+import os
+import time
+
+import numpy as np
+import torch
+
+from robseg_torch import kernels
+from robseg_torch.config import (DEVICE_AUG_REFUSED, TrainSettings,
+                                 load_config, resolve_device)
+from robseg_torch.convert import load_pir
+from robseg_torch.data import (IterationBasedLoader, get_segmentation_dataset,
+                               prefetch, simple_eval_loader)
+from robseg_torch.infer import set_numerics
+from robseg_torch.models import build_model
+from robseg_torch.train.checkpoint import CheckpointManager, save_weights
+from robseg_torch.train.optim import (freeze_mask, make_optimizer,
+                                      pspnet_lr_scales)
+from robseg_torch.train.schedules import (get_scheduler, poly_lr,
+                                          polynomial_lr_timm)
+from robseg_torch.train.trainer import (AttackConfig, Trainer,
+                                        metrics_from_hist)
+from robseg_torch.utils import Logger
+
+BF16_REFUSED = (
+    "--precision bf16 / TRAIN.AMP: the JAX trainer sets "
+    "jax_default_matmul_precision=bfloat16 (bf16 passes inside float32 "
+    "matmuls and convolutions), which has no exact torch counterpart; "
+    "training under bf16 is not ported yet (ROADMAP.md)")
+UPERNET = "UperNetForSemanticSegmentation"
+
+
+def build_optimizer(cfg, model_name, module, max_iters, iters_per_epoch,
+                    frozen_mask=None):
+    """Per-family optimizer and schedule, ``tools/train.py:45-73``:
+    Segmenter timm SGD + polynomial; PSPNet SGD + poly with the new
+    modules at x10; UperNet the config's optimizer and scheduler."""
+    opt_cfg, sched_cfg = cfg["OPTIMIZER"], cfg["SCHEDULER"]
+    lr = float(opt_cfg["LR"])
+    wd = float(opt_cfg.get("WEIGHT_DECAY", 0.01))
+    if model_name == "SegMenter":
+        sched = polynomial_lr_timm(1e-3, max_iters, power=0.9,
+                                   iter_warmup=0, min_lr=1e-5)
+        return make_optimizer("sgd", module, sched, weight_decay=1e-5,
+                              frozen_mask=frozen_mask), sched
+    if model_name == "PSPNet":
+        sched = poly_lr(lr, max_iters, power=0.9)
+        return make_optimizer("sgd", module, sched, weight_decay=wd,
+                              lr_scales=pspnet_lr_scales(module),
+                              frozen_mask=frozen_mask), sched
+    sched = get_scheduler(
+        sched_cfg["NAME"], lr, max_iters, sched_cfg.get("POWER", 0.9),
+        iters_per_epoch * sched_cfg.get("WARMUP", 5),
+        sched_cfg.get("WARMUP_RATIO", 1e-5))
+    return make_optimizer(opt_cfg.get("NAME", "AdamW"), module, sched,
+                          weight_decay=wd, frozen_mask=frozen_mask), sched
+
+
+def format_table(rows) -> str:
+    """Two right-aligned columns between rules (tabulate's plain look)."""
+    w0 = max(len(a) for a, _ in rows)
+    w1 = max(len(b) for _, b in rows)
+    rule = "-" * w0 + "  " + "-" * w1
+    return "\n".join([rule] + [f"{a:<{w0}}  {b:>{w1}}" for a, b in rows]
+                     + [rule])
+
+
+def parse_args(argv=None):
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--cfg", type=str, required=True)
+    parser.add_argument("--max_iters", type=int, default=None,
+                        help="override the EPOCHS-derived iteration count")
+    parser.add_argument("--multihost", action="store_true",
+                        help="not ported: the port trains on one card")
+    parser.add_argument("--resume", action="store_true")
+    parser.add_argument("--run_dir", type=str, default=None,
+                        help="reuse this run directory (needed for --resume "
+                             "to find earlier checkpoints; default is a "
+                             "fresh timestamped directory)")
+    parser.add_argument("--precision", type=str, default="default",
+                        choices=["default", "bf16", "f32"],
+                        help="default: TF32 in cuBLAS and cuDNN (the "
+                             "reference's numerics class); f32: TF32 off; "
+                             "bf16: refused, see its error")
+    parser.add_argument("--fused_attack", action="store_true",
+                        help="make the adversarial examples through the "
+                             "block kernels (UperNet only); the update "
+                             "differentiates the plain module")
+    args = parser.parse_args(argv)
+    if args.multihost:
+        parser.error("--multihost: the port trains on one card (ROADMAP.md, "
+                     "section 1 item 9)")
+    if args.precision == "bf16":
+        parser.error(BF16_REFUSED)
+    return args
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    if args.precision == "default":
+        set_numerics()
+    else:  # f32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+    cfg = load_config(args.cfg)
+    t = TrainSettings.from_cfg(cfg["TRAIN"])
+    if t.amp:
+        raise SystemExit(BF16_REFUSED)
+    if t.device_aug:
+        raise SystemExit(DEVICE_AUG_REFUSED)
+    device = resolve_device(cfg)
+    dataset_cfg, model_cfg = cfg["DATASET"], cfg["MODEL"]
+    n_cls = dataset_cfg["N_CLS"]
+    model_name = model_cfg["NAME"]
+    backbone = model_cfg.get("BACKBONE", "")
+    seed = dataset_cfg.get("SEED", 0)
+    clean = "clean" in str(cfg.get("ADDENDUM", ""))
+
+    save_dir = str(cfg.get("SAVE_DIR", "./outputs"))
+    if args.run_dir:
+        save_path = args.run_dir
+    else:
+        stamp = str(datetime.datetime.now())[:-7].replace(" ", "-").replace(
+            ":", "_")
+        save_path = os.path.join(
+            save_dir, str(dataset_cfg["NAME"]),
+            f"{model_name}_{backbone}_adv_{t.adversarial}_{stamp}_"
+            f"{t.attack}_{t.loss_fn}{cfg.get('ADDENDUM', '')}")
+    os.makedirs(save_path, exist_ok=True)
+    logger = Logger(os.path.join(save_path, "train_log"))
+    logger.log(str(cfg))
+
+    torch.manual_seed(seed)
+    module = build_model(model_name, backbone, n_cls,
+                         image_size=t.image_size, pspnet_clean=clean,
+                         fused=False if model_name == UPERNET else None)
+    pretrained = model_cfg.get("PRETRAINED")
+    if pretrained and os.path.exists(str(pretrained)):
+        n = load_pir(module, model_name, backbone, str(pretrained), clean)
+        logger.log(f"PIR init ({model_name}): loaded {n} robust tensors "
+                   f"from {pretrained}")
+    module.to(device)
+
+    train_ds = get_segmentation_dataset(
+        dataset_cfg["NAME"], root=dataset_cfg["ROOT"], split="train",
+        mode="train", base_size=t.base_size, crop_size=t.image_size,
+        seed=seed)
+    eval_cfg = cfg["EVAL"]
+    val_ds = get_segmentation_dataset(
+        dataset_cfg["NAME"], root=dataset_cfg["ROOT"], split="val",
+        mode="val", base_size=eval_cfg.get("BASE_SIZE", t.base_size),
+        crop_size=eval_cfg.get("IMAGE_SIZE", t.image_size))
+    iters_per_epoch = len(train_ds) // t.batch_size
+    max_iters = args.max_iters or t.epochs * iters_per_epoch
+    logger.log(f"device={device} batch={t.batch_size} "
+               f"iters/epoch={iters_per_epoch} max_iters={max_iters}")
+
+    frozen = None
+    if t.freeze:
+        frozen = freeze_mask(module)
+        logger.log("TRAIN.FREEZE: backbone parameters frozen (not in the "
+                   "optimizer)")
+    if not t.ddp:
+        logger.log("note: TRAIN.DDP=false has no effect: the port trains "
+                   "on one card")
+    opt, sched = build_optimizer(cfg, model_name, module, max_iters,
+                                 iters_per_epoch, frozen_mask=frozen)
+    attack = AttackConfig(enabled=t.adversarial, name=t.attack,
+                          loss_fn=t.loss_fn, eps=t.eps / 255.0,
+                          n_iters=t.n_iters)
+    twin = None
+    if args.fused_attack:
+        if model_name != UPERNET:
+            raise SystemExit("--fused_attack supports UperNet only")
+        # parameters come from the trained module at every call
+        with torch.device("meta"):
+            twin = build_model(model_name, backbone, n_cls, fused=True)
+    generator = torch.Generator(device=device)
+    generator.manual_seed(seed)
+    trainer = Trainer(module, model_name, opt, attack, twin=twin,
+                      generator=generator)
+
+    ckpt_mgr = CheckpointManager(os.path.join(save_path, "ckpts"))
+    if args.resume:
+        state = ckpt_mgr.restore()
+        if state is not None:
+            trainer.load_state_dict(state)
+            logger.log(f"Resumed from step {trainer.step}")
+
+    loader = prefetch(IterationBasedLoader(
+        train_ds, batch_size=t.batch_size, max_iters=max_iters, seed=seed,
+        start_iter=trainer.step), depth=2)
+    eval_bs = t.batch_size
+
+    def run_eval(n_batches=None):
+        if n_batches is None:
+            n_batches = t.eval_batches
+        hist = torch.zeros((n_cls, n_cls), dtype=torch.float32,
+                           device=device)
+        for x, y in simple_eval_loader(val_ds, eval_bs, n_batches):
+            if x.shape[0] != eval_bs:
+                # pad the tail batch; its rows are all ignore labels, so
+                # they add nothing to the confusion matrix
+                reps = eval_bs - x.shape[0]
+                x = np.concatenate([x, np.repeat(x[-1:], reps, axis=0)])
+                y = np.concatenate(
+                    [y, np.full((reps,) + y.shape[1:], -1, y.dtype)])
+            hist = trainer.eval_step(torch.from_numpy(x).to(device),
+                                     torch.from_numpy(y).to(device), hist)
+        return metrics_from_hist(hist)
+
+    best_miou, best_aacc = 0.0, 0.0
+    best_json = os.path.join(save_path, "best.json")
+    if args.resume and os.path.exists(best_json):
+        with open(best_json) as f:
+            b = json.load(f)
+        best_miou, best_aacc = b["best_miou"], b["best_aacc"]
+        logger.log(f"Restored best-so-far: mIoU={best_miou:.4f} "
+                   f"aAcc={best_aacc:.4f}")
+    t0 = time.time()
+    start_it = trainer.step
+    train_loss, window = 0.0, 0
+    log_every = max(iters_per_epoch // 2, 1)
+    eval_every = max(iters_per_epoch * t.eval_freq, 1)
+
+    for it, (imgs, lbls) in enumerate(loader, start=start_it):
+        loss = trainer.train_step(torch.from_numpy(imgs).to(device),
+                                  torch.from_numpy(lbls).to(device))
+        train_loss += float(loss)
+        window += 1
+        if (it + 1) % log_every == 0:
+            done = it - start_it + 1
+            eta = (time.time() - t0) / done * (max_iters - it - 1)
+            logger.log(
+                "Epoch: {:d}/{:d} | Iters: {:d}/{:d} || Lr: {:.6f} || "
+                "Loss: {:.7f} || ETA: {}".format(
+                    it // max(iters_per_epoch, 1) + 1, t.epochs, it,
+                    max_iters, float(sched(it)),
+                    train_loss / max(window, 1),
+                    str(datetime.timedelta(seconds=int(eta)))))
+            train_loss, window = 0.0, 0
+        if (it + 1) % eval_every == 0:
+            m = run_eval()
+            logger.log(f"Epoch [{it // max(iters_per_epoch, 1) + 1}] val "
+                       f"mIoU={m['mIoU']:.4f} aAcc={m['aAcc']:.4f}")
+            ckpt_mgr.save(trainer.step, trainer.state_dict())
+            if m["mIoU"] > best_miou:
+                best_miou = m["mIoU"]
+                save_weights(os.path.join(save_path, "best_model.pth"),
+                             module)
+            best_aacc = max(best_aacc, m["aAcc"])
+            with open(best_json, "w") as f:
+                json.dump({"best_miou": best_miou, "best_aacc": best_aacc},
+                          f)
+
+    # endgame; parity: train_rob_seg.py:426-454
+    if ckpt_mgr.latest_step() != trainer.step:  # not saved by the last eval
+        ckpt_mgr.save(trainer.step, trainer.state_dict())
+    save_weights(os.path.join(save_path, "final_model.pth"), module)
+    elapsed = time.gmtime(time.time() - t0)
+    logger.log(format_table([
+        ("Best mIoU", f"{best_miou:.2f}"), ("Best aAcc", f"{best_aacc:.2f}"),
+        ("Total Training Time", time.strftime("%H:%M:%S", elapsed))]))
+    best_path = os.path.join(save_path, "best_model.pth")
+    if os.path.exists(best_path):
+        module.load_state_dict(torch.load(best_path, map_location=device))
+        logger.log("Reloaded best checkpoint for the final evaluation")
+    m = run_eval(n_batches=-1)
+    logger.log(format_table([("full mIoU", f"{m['mIoU']:.2f}"),
+                             ("full aAcc", f"{m['aAcc']:.2f}")]))
+    logger.log("kernel launches: " + json.dumps(kernels.launch_counts()))
+
+
+if __name__ == "__main__":
+    main()

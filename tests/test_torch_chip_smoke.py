@@ -340,3 +340,32 @@ def test_cpu_checks_cover_the_new_families(smoke):
         "DeepLabV3_DDCAT"}
     for name, _, _, _, side in smoke.CPU_CHECKS:
         assert name == "SegMenter" or (side - 1) % 8 == 0
+
+
+def test_train_phase_inputs_and_launch_set(smoke):
+    """Phase 10's batch: seeded images in [0, 1] and labels constant over
+    32 x 32 regions with no ignore pixel; the kernels its launch proof
+    demands are the block pair, the APGD step and the confusion
+    kernel."""
+    cpu = torch.device("cpu")
+    x, y = smoke.train_inputs(cpu, 2, 70, 21)
+    x2, y2 = smoke.train_inputs(cpu, 2, 70, 21)
+    assert torch.equal(x, x2) and torch.equal(y, y2)
+    assert x.shape == (2, 3, 70, 70) and 0 <= x.min() and x.max() <= 1
+    assert y.shape == (2, 70, 70) and y.min() >= 0 and y.max() < 21
+    assert torch.equal(y[:, :32, :32], y[:, :1, :1].expand(2, 32, 32))
+    assert set(smoke.TRAIN_PATH) == {"convnext_block_fwd",
+                                     "convnext_block_dx", "apgd_linf_step",
+                                     "confusion_matrix"}
+    assert set(smoke.TRAIN_PATH) <= set(smoke.REPLACES)
+
+
+def test_train_stage_shapes(smoke):
+    """Phase 2 holds the block pair against its plain version at the four
+    ConvNeXt stage inputs of the train path (batch 32 at 473^2), the last
+    two above the fused form's width (the whole-image kernels)."""
+    shapes = smoke.train_stage_shapes()
+    assert shapes == [(32, 119, 119, 96), (32, 59, 59, 192),
+                      (32, 29, 29, 384), (32, 14, 14, 768)]
+    from robseg_torch.kernels import convnext_block as cb
+    assert [cb.fused(s[-1]) for s in shapes] == [True, True, False, False]

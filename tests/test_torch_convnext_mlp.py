@@ -137,9 +137,14 @@ def test_saved_hidden_and_no_parameter_gradients(mode):
     save_h, bf16 = MODES[mode]
     params = [t.requires_grad_(True) for t in _torch_params(p)]
     xt = torch.tensor(x, requires_grad=True)
-    convnext_mlp(xt, *params, mode=mode).sum().backward()
-    assert xt.grad is not None and torch.isfinite(xt.grad).all()
+    # a weight that requires grad makes the backward raise, none is filled
+    with pytest.raises(RuntimeError, match="input gradients only"):
+        convnext_mlp(xt, *params, mode=mode).sum().backward()
     assert all(t.grad is None for t in params)
+    xt = torch.tensor(x, requires_grad=True)
+    convnext_mlp(xt, *[t.detach() for t in params],
+                 mode=mode).sum().backward()
+    assert xt.grad is not None and torch.isfinite(xt.grad).all()
     _, h = convnext_mlp_fwd_plain(torch.tensor(x), *params, save_h=save_h,
                                   bf16_operands=bf16)
     if save_h:

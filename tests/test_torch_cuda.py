@@ -112,6 +112,35 @@ def test_block_fn_gradient_goes_through_kernels(dev):
     assert counts["convnext_block_dx"] == 1
 
 
+def test_kernels_refuse_weight_gradients(dev):
+    """A backward through a kernel with a weight that requires grad
+    raises (no weight gradient is dropped silently); with detached
+    weights, as the trainer's attack passes them, the input gradient goes
+    through the kernels."""
+    from robseg_torch.models import build_model
+    from robseg_torch.models.upernet import UperNetForSemanticSegmentation
+    torch.manual_seed(0)
+    x = torch.rand(1, 3, 64, 64, device=dev, requires_grad=True)
+    for m in (build_model("UperNetForSemanticSegmentation",
+                          "ConvNeXt-T_CVST", 21),
+              UperNetForSemanticSegmentation("T_CVST", 21,
+                                             fused_mlp_mode="residual",
+                                             fused_head="pallas")):
+        m = m.to(dev).eval()
+        with pytest.raises(RuntimeError, match="input gradients only"):
+            m(x).sum().backward()
+        # autograd stops at the first kernel: the head's convolutions may
+        # hold gradients, no ConvNeXt block's parameter does
+        assert all(p.grad is None for n, p in m.named_parameters()
+                   if n.startswith("backbone.stages."))
+        m.zero_grad(set_to_none=True)
+        tensors = {k: v.detach() for k, v in m.named_parameters()}
+        tensors.update(m.named_buffers())
+        x.grad = None
+        torch.func.functional_call(m, tensors, (x,)).sum().backward()
+        assert torch.isfinite(x.grad).all()
+
+
 @pytest.mark.parametrize("a", [1.0, 0.75])
 def test_apgd_step_exact(dev, a):
     rng = np.random.default_rng(0)

@@ -107,10 +107,14 @@ def test_no_parameter_gradients():
     xs, w, s, t, _ = _case(2, 2, (1, 5, 6, 32), 32)
     xt = [torch.tensor(x, requires_grad=True) for x in xs]
     params = [torch.tensor(a, requires_grad=True) for a in (w, s, t)]
-    fpn_concat_conv(xt, *params).sum().backward()
+    # a weight that requires grad makes the backward raise, none is filled
+    with pytest.raises(RuntimeError, match="input gradients only"):
+        fpn_concat_conv(xt, *params).sum().backward()
+    assert all(p.grad is None for p in params)
+    xt = [torch.tensor(x, requires_grad=True) for x in xs]
+    fpn_concat_conv(xt, *[p.detach() for p in params]).sum().backward()
     assert all(x.grad is not None and torch.isfinite(x.grad).all()
                for x in xt)
-    assert all(p.grad is None for p in params)
 
 
 def _implicit_gemm(acts, panels, n, sign, slots, s=None, t=None):

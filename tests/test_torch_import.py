@@ -8,15 +8,22 @@ import numpy as np
 
 
 def test_port_imports_no_jax():
-    """Every module of the package, found by walking it, imports without
-    pulling in JAX or robseg_tpu."""
+    """Every module of the package, found by walking it (the train slice's
+    too: the trainer, its CLI, PGD, checkpoints, PIR init, prefetch),
+    imports without pulling in JAX or robseg_tpu."""
     code = ("import importlib, pkgutil, sys\n"
             "import robseg_torch\n"
             "names = [m.name for m in pkgutil.walk_packages(\n"
             "    robseg_torch.__path__, 'robseg_torch.')]\n"
             "for m in names:\n"
             "    importlib.import_module(m)\n"
-            "assert 'robseg_torch.infer' in names, names\n"
+            "for want in ('robseg_torch.infer', 'robseg_torch.attacks.pgd',\n"
+            "             'robseg_torch.train.trainer',\n"
+            "             'robseg_torch.train.__main__',\n"
+            "             'robseg_torch.train.checkpoint',\n"
+            "             'robseg_torch.convert.pir',\n"
+            "             'robseg_torch.data.prefetch'):\n"
+            "    assert want in names, (want, names)\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'flax', 'optax',\n"
             "                                    'robseg_tpu'))\n"

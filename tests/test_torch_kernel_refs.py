@@ -78,11 +78,15 @@ def test_block_fn_gives_no_parameter_gradients():
     rng = np.random.default_rng(2)
     params = [p.requires_grad_(True) for p in
               _torch_params(_jax_params(rng, 96))]
-    x = torch.tensor(rng.normal(size=(1, 9, 11, 96)).astype(np.float32),
-                     requires_grad=True)
-    convnext_block(x, *params).sum().backward()
-    assert x.grad is not None and torch.isfinite(x.grad).all()
+    x0 = rng.normal(size=(1, 9, 11, 96)).astype(np.float32)
+    x = torch.tensor(x0, requires_grad=True)
+    # a weight that requires grad makes the backward raise, none is filled
+    with pytest.raises(RuntimeError, match="input gradients only"):
+        convnext_block(x, *params).sum().backward()
     assert all(p.grad is None for p in params)
+    x = torch.tensor(x0, requires_grad=True)
+    convnext_block(x, *[p.detach() for p in params]).sum().backward()
+    assert x.grad is not None and torch.isfinite(x.grad).all()
 
 
 def _bf(t):
