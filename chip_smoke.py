@@ -2,9 +2,11 @@
 fused-variant attack path (MLP-tail and FPN concat-conv kernels), the
 ``--precision bf16`` path (the bf16 I/O forms of the block and FPN
 kernels), the SEA path of the Segmenter-ViT and PSPNet/DeepLab
-families (the APGD-step and confusion kernels), and the PIR-AT train
+families (the APGD-step and confusion kernels), the PIR-AT train
 path (the block pair in the attack's twin, the APGD-step kernel under
-``TRAIN.ATTACK: apgd``, the confusion kernel in the evaluations).
+``TRAIN.ATTACK: apgd``, the confusion kernel in the evaluations), the
+worst-case engines, the L2/L1/restart/filter attacks, multi-scale + flip
+evaluation and ADE20K training with on-device augmentation.
 
     python3 chip_smoke.py
 
@@ -130,6 +132,40 @@ result line):
           peak memory, finite losses;
      the block pair, the APGD-step and the confusion kernels must have
      launched on it (``launches_train_path`` in the kernels line).
+  W. the worst-case engines: ``libworst_case`` built with g++ from
+     robseg_torch/native/worst_case.cpp, then native (and auto), python,
+     reference and reference-python on seeded (A, N, K) = (3, 2000, 151)
+     with absent classes, each engine's seconds; the native minimum within
+     0.02 of the Python one and not above the start, the reference pair
+     trajectory-identical, auto = native;
+  N. the norms, counted from zero, on the main path's model (batch 16,
+     512^2, 21 classes, mask-ce-avg tracking ce-avg, no random start):
+     run_attack_over_loader refuses L2 and L1 as the JAX function does
+     (apgd_largereps projects in Linf only), so apgd_attack runs them
+     (L2 eps 4, L1 eps 64; 10 and 4 iterations: whole-run and marginal
+     step*imgs/s), each inside its ball and [0, 1] with the projection
+     active; run_attack_over_loader under Linf; apgd_restarts with
+     ce-targeted, 2 restarts x 10 Linf iterations; pgd_filters, 10
+     iterations; iou_acc_summary of each, and no attacked per-image
+     accuracy above the clean one; the block pair, APGD-step and
+     confusion kernels must have launched;
+  M. multi-scale + flip: multi_scale_flip_logits on 8 fixture VOC images
+     at 473^2 (scales 256, 384, 480, 608, 736 and their flips) against the
+     same call with every kernel plain (TF32 off; phase 3's logits bound on
+     the summed probabilities), then the SEA CLI with ``--no-adversarial
+     --msf`` and configs/pascalvoc_convnext.yaml on the fixture (wall time,
+     stats); the CLI's block forward and confusion launches must be
+     non-zero;
+  A. ADE20K training with TRAIN.DEVICE_AUG: augment_batch's ms a batch-16
+     call from 1040^2 buffers (an ADE20K-layout fixture with a train
+     split, ``fixture_ade_train``) beside the host pipeline's and
+     load_raw_batch's ms a batch; configs/ade20k_convnext.yaml's step (151
+     classes, batch 16, 512^2, PGD-20 at eps 4/255 through the block
+     kernels' twin, AdamW) on such batches: 2 warm-up and 4 timed steps,
+     s/step, train images/s, peak memory, an eval step; the train CLI with
+     DEVICE_AUG: true at batch 8 for 4 iterations (an eval, a checkpoint)
+     and --resume to 5; counted from zero, the block pair and the
+     confusion kernel must have launched.
 Each phase prints its seconds. Then one JSON line of per-kernel results,
 and the last line
 ``{"ok": true, "device": {...}}``.
@@ -184,6 +220,7 @@ NVIDIA's H100 SXM figures.
 
 from __future__ import annotations
 
+import ast
 import contextlib
 import json
 import math
@@ -2080,6 +2117,465 @@ def phase_train_families(dev, smi: str):
         torch.cuda.empty_cache()
 
 
+# ----------------------------------------------------------------------------
+# The worst-case engines, the other norms, multi-scale + flip and ADE20K
+# training with on-device augmentation
+# ----------------------------------------------------------------------------
+
+# the kernels each of these paths must launch (from zero, before it runs)
+NORMS_PATH = ("convnext_block_fwd", "convnext_block_dx", "apgd_linf_step",
+              "confusion_matrix")
+MSF_PATH = ("convnext_block_fwd", "confusion_matrix")
+ADE_TRAIN_PATH = ("convnext_block_fwd", "convnext_block_dx",
+                  "confusion_matrix")
+EPS_L2, EPS_L1 = 4.0, 64.0  # both projections act from the first steps
+WC_SHAPE = (3, 2000, 151)   # SEA's attacks x ADE20K's val images x classes
+
+
+def worst_case_instance(shape=WC_SHAPE, seed=0, absent=20):
+    """Seeded (A, N, K) intersections and unions with ``absent`` classes
+    absent everywhere (what the reference engines' shrink reads)."""
+    rng = np.random.default_rng(seed)
+    ints = rng.integers(0, 50, shape).astype(np.float64)
+    unis = ints + rng.integers(0, 80, shape).astype(np.float64)
+    drop = rng.choice(shape[-1], absent, replace=False)
+    ints[:, :, drop] = 0
+    unis[:, :, drop] = 0
+    return ints, unis
+
+
+def phase_worst_case():
+    """W: build libworst_case with g++ and run the four engines on an
+    ADE-sized input. The JAX package's tests hold: the native minimum
+    close to the Python one (within 0.02) and not above the start; the
+    reference pair trajectory-identical (same selection, mIoU within
+    1e-12); ``auto`` is ``native``."""
+    from robseg_torch.attacks.worst_case import _miou_from, worst_case_miou
+    from robseg_torch.kernels import _build
+    t0 = time.time()
+    _build.native_library("worst_case")
+    build_s = time.time() - t0
+    ints, unis = worst_case_instance()
+    res, secs = {}, {}
+    for eng in ("native", "auto", "python", "reference", "reference-python"):
+        t0 = time.time()
+        res[eng] = worst_case_miou(ints, unis, engine=eng,
+                                   return_selection=True)
+        secs[eng] = time.time() - t0
+    start = _miou_from(ints[0].sum(0), unis[0].sum(0))
+    print(f"worst case (A, N, K) = {WC_SHAPE}: g++ build {build_s:.2f} s; "
+          + "; ".join(f"{e} {secs[e]:.3f} s, final_miou {res[e][0]:.10f}"
+                      for e in res) + f"; start {start:.10f}", flush=True)
+    if not (res["auto"][0] == res["native"][0]
+            and np.array_equal(res["auto"][1], res["native"][1])):
+        raise AssertionError("worst case: auto is not native")
+    if not (abs(res["python"][0] - res["native"][0]) < 0.02
+            and res["native"][0] <= start + 1e-9):
+        raise AssertionError(f"worst case: native {res['native'][0]}, "
+                             f"python {res['python'][0]}, start {start}")
+    if not (np.array_equal(res["reference"][1], res["reference-python"][1])
+            and abs(res["reference"][0] - res["reference-python"][0])
+            < 1e-12):
+        raise AssertionError("worst case: the reference engines differ")
+
+
+def pert_norms(adv, x) -> dict:
+    """Per-image Linf, L2 and L1 norms of ``adv - x``, and the range and
+    NaN count of ``adv`` (chip_smoke's check_imgs)."""
+    d = (adv - x).reshape(adv.shape[0], -1).double()
+    return {"Linf": d.abs().amax(1), "L2": d.pow(2).sum(1).sqrt(),
+            "L1": d.abs().sum(1), "min": float(adv.min()),
+            "max": float(adv.max()), "nan": int(torch.isnan(adv).sum())}
+
+
+def check_in_ball(label, adv, x, norm, eps, active=None):
+    """``adv`` finite, in [0, 1] and in the ``norm`` ball of radius eps
+    (relative slack 1e-4 for the float32 projections); with ``active``,
+    the largest perturbation is at least that share of eps (the
+    projection acted)."""
+    n = pert_norms(adv, x)
+    top = float(n[norm].max())
+    if not (n["nan"] == 0 and n["min"] >= 0.0 and n["max"] <= 1.0
+            and top <= eps * (1 + 1e-4) + 1e-6):
+        raise AssertionError(f"{label}: outside the ball or box: {norm} "
+                             f"{top} (eps {eps}), {n['min']}..{n['max']}, "
+                             f"nan {n['nan']}")
+    if active is not None and top < active * eps:
+        raise AssertionError(f"{label}: largest {norm} {top}, below "
+                             f"{active} x eps {eps}: projection inactive")
+    return top
+
+
+def phase_norms(dev, logits_fn, smi: str):
+    """N: the rest of the attack engine on UperNet-ConvNeXt-T_CVST, batch
+    16, 512^2, 21 classes (mask-ce-avg tracking ce-avg, no random start,
+    which is Linf only): run_attack_over_loader under L2 and L1 raises as
+    the JAX function does (apgd_largereps projects between its phases in
+    Linf only), so their attacks run through apgd_attack, 10 and 4
+    iterations (whole-run and marginal step*imgs/s); run_attack_over_loader
+    under Linf (10 iterations); apgd_restarts with ce-targeted, 2 x 10
+    Linf; pgd_filters, 10 iterations; iou_acc_summary of each result.
+    Every result inside its ball and [0, 1], and the attacked per-image
+    accuracy not above the clean one."""
+    from robseg_torch.attacks import (apgd_attack, apgd_restarts,
+                                      pgd_filters, run_attack_over_loader)
+    from robseg_torch.attacks.apgd import _per_image_acc
+    from robseg_torch.ops import iou_acc_summary
+    x, y = train_inputs(dev, BATCH, HW, N_CLS, seed=9)
+    with torch.no_grad():
+        clean_logits = logits_fn(x)
+    clean_acc = _per_image_acc(clean_logits, y, -1, False)
+    summary = {}
+
+    def record(label, adv, acc=None):
+        """iou_acc_summary of the model on ``adv``; the per-image
+        accuracy (the attack's own, else recomputed: 1e-3 of slack for
+        argmax ties that a second forward breaks otherwise) not above the
+        clean one."""
+        with torch.no_grad():
+            pred = logits_fn(adv).argmax(1)
+        summary[label] = [float(v) for v in iou_acc_summary(
+            pred, y, num_classes=N_CLS)]
+        if acc is None:
+            acc = (pred == y).float().reshape(BATCH, -1).mean(1)
+        if bool((acc > clean_acc + 1e-3).any()):
+            raise AssertionError(f"{label}: attacked accuracy above the "
+                                 f"clean one: {acc} vs {clean_acc}")
+
+    for norm in ("L2", "L1"):
+        try:
+            run_attack_over_loader(logits_fn, [(x, y)], loss="mask-ce-avg",
+                                   eps=1.0, n_iter=4, norm=norm,
+                                   use_rs=False, device=dev)
+        except NotImplementedError:
+            pass
+        else:
+            raise AssertionError(f"run_attack_over_loader accepted {norm}")
+    for norm, eps in (("L2", EPS_L2), ("L1", EPS_L1)):
+        def run(it, norm=norm, eps=eps):
+            res = apgd_attack(logits_fn, x, y, norm=norm, eps=eps,
+                              n_iter=it, use_rs=False, loss="mask-ce-avg",
+                              track_loss="ce-avg", n_iter_buf=10)
+            res.acc.cpu()
+            return res
+        run(2)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        run(4)
+        t1 = time.perf_counter()
+        res = run(10)
+        t2 = time.perf_counter()
+        top = check_in_ball(f"{norm} APGD", res.x_best_adv, x, norm, eps,
+                            active=0.9)
+        record(f"{norm} APGD", res.x_best_adv, res.acc)
+        per_iter = ((t2 - t1) - (t1 - t0)) / 6
+        print(f"apgd {norm} ({BATCH},3,{HW},{HW}) eps {eps:g} mask-ce-avg"
+              f"/ce-avg: whole-run {10 * BATCH / (t2 - t1):.2f} "
+              f"step*imgs/s, marginal {BATCH / per_iter:.2f} step*imgs/s "
+              f"({per_iter * 1e3:.1f} ms/iteration), peak "
+              f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; "
+              f"largest {norm} perturbation {top:.5f}; mean acc clean "
+              f"{float(clean_acc.mean()):.4f} -> "
+              f"{float(res.acc.mean()):.4f} [{smi}]", flush=True)
+    t0 = time.time()
+    ((adv, _),) = run_attack_over_loader(
+        logits_fn, [(x, y)], loss="mask-ce-avg", eps=EPS, n_iter=10,
+        use_rs=False, device=dev)
+    adv = torch.as_tensor(adv, device=dev)
+    check_in_ball("run_attack_over_loader Linf", adv, x, "Linf", EPS)
+    record("loader Linf", adv)
+    t_loader = time.time() - t0
+    t0 = time.time()
+    adv, _, acc = apgd_restarts(
+        logits_fn, x, y, norm="Linf", eps=EPS, n_iter=10, loss="ce-targeted",
+        n_restarts=2, track_loss="ce-avg", n_target_classes=N_CLS)
+    acc.cpu()
+    t_restarts = time.time() - t0
+    check_in_ball("apgd_restarts", adv, x, "Linf", EPS)
+    record("restarts ce-targeted", adv, acc)
+    t0 = time.time()
+    y_img = torch.randint(0, 10, (BATCH,), device=dev,
+                          generator=torch.Generator(dev).manual_seed(4))
+    xf, f = pgd_filters(logits_fn, x, y, y_img, n_iter=10, n_cls=10,
+                        generator=torch.Generator(dev).manual_seed(5))
+    xf.cpu()
+    t_filters = time.time() - t0
+    if not (bool(torch.isfinite(xf).all()) and float(f.min()) >= 0
+            and float(f.max()) <= 1):
+        raise AssertionError("pgd_filters: non-finite images or filters "
+                             "outside [0, 1]")
+    with torch.no_grad():
+        pred = logits_fn(xf).argmax(1)
+    summary["pgd_filters"] = [float(v) for v in iou_acc_summary(
+        pred, y, num_classes=N_CLS)]
+    summary["clean"] = [float(v) for v in iou_acc_summary(
+        clean_logits.argmax(1), y, num_classes=N_CLS)]
+    print(f"run_attack_over_loader Linf (10 iterations, largereps) "
+          f"{t_loader:.2f} s; apgd_restarts ce-targeted 2 x 10 Linf "
+          f"{t_restarts:.2f} s; pgd_filters 10 iterations {t_filters:.2f} "
+          f"s; iou_acc_summary (mAcc, aAcc, mIoU): {json.dumps(summary)} "
+          f"[{smi}]", flush=True)
+
+
+def phase_msf(dev, tmp, logits_fn, smi: str) -> dict:
+    """M: multi_scale_flip_logits on one fixture VOC batch (8 images,
+    473^2, scales 256/384/480/608/736 and their flips) against the same
+    call with every kernel routed to its plain version, TF32 off, within
+    phase 3's logits bound (atol = rtol = 2e-2, here on the summed
+    probabilities); then the SEA CLI with ``--no-adversarial --msf`` and
+    configs/pascalvoc_convnext.yaml on the fixture. Returns the CLI's
+    launch counts (the comparison's are not the path's)."""
+    import yaml
+    from robseg_torch.data import get_segmentation_dataset, simple_eval_loader
+    from robseg_torch.infer import MSF_SCALES
+    from robseg_torch.utils.sliding_window import multi_scale_flip_logits
+    root = fixture_voc(tmp)
+    ds = get_segmentation_dataset("pascalvoc", root=root, split="val",
+                                  crop_size=473)
+    xn, _ = next(simple_eval_loader(ds, 8, 1))
+    x = torch.tensor(xn, device=dev)
+    with strict_float32(), torch.no_grad():
+        def msf():
+            return multi_scale_flip_logits(logits_fn, x, scales=MSF_SCALES,
+                                           flip=True, num_classes=N_CLS)
+        pk = msf()
+        with plain_kernels():
+            pp = msf()
+    err = float((pk - pp).abs().max())
+    agree = float((pk.argmax(1) == pp.argmax(1)).float().mean())
+    print(f"multi_scale_flip_logits (8,3,473,473), scales {MSF_SCALES} + "
+          f"flips, TF32 off: kernels vs plain max_abs_err {err:.3e} on "
+          f"summed probabilities (max {float(pp.max()):.3f}), argmax "
+          f"agreement {agree:.5f}", flush=True)
+    torch.testing.assert_close(pk, pp, atol=2e-2, rtol=2e-2)
+    del pk, pp
+    with open(os.path.join(REPO, "configs", "pascalvoc_convnext.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    cfg["DATASET"]["ROOT"] = root
+    cfg["SAVE_DIR"] = os.path.join(tmp, "out_msf")
+    cfg_path = os.path.join(tmp, "cfg_msf.yaml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    t0 = time.time()
+    p = subprocess.run([sys.executable, "-m", "robseg_torch.infer", "--cfg",
+                        cfg_path, "--no-adversarial", "--msf"], cwd=REPO,
+                       capture_output=True, text=True)
+    wall = time.time() - t0
+    if p.returncode != 0:
+        raise RuntimeError(f"SEA CLI --msf exited {p.returncode}:\n"
+                           f"{p.stdout[-4000:]}\n{p.stderr[-4000:]}")
+    m = re.search(r"MSF clean performance: (\{.*\})", p.stdout)
+    c = re.search(r"^kernel launches: (\{.*\})$", p.stdout, re.M)
+    if m is None or c is None:
+        raise AssertionError("SEA CLI --msf printed no MSF stats or no "
+                             "launch counts")
+    stats = ast.literal_eval(m.group(1))
+    if not all(0.0 <= v <= 1.0 for v in stats.values()):
+        raise AssertionError(f"MSF stats {stats}")
+    counts = json.loads(c.group(1))
+    print(f"SEA CLI --no-adversarial --msf (pascalvoc_convnext.yaml, 8 "
+          f"fixture images at 473^2, one batch) in {wall:.1f} s (process "
+          f"included): MSF clean performance {stats}; launches {counts} "
+          f"[{smi}]", flush=True)
+    return counts
+
+
+def fixture_ade_train(tmp: str) -> str:
+    """An ADE20K-layout tree with a train split: 32 training images of
+    four sizes (one above the 1040 buffer's edge, so the host resizes it)
+    and 8 validation images, piecewise-constant labels 0..150."""
+    from PIL import Image
+    root = os.path.join(tmp, "ade_train")
+    base = os.path.join(root, "ADEChallengeData2016")
+    if os.path.isdir(base):
+        return root
+    sizes = ((512, 683), (600, 800), (384, 512), (1200, 900))
+    for split, n, tag in (("training", 32, "train"),
+                          ("validation", 8, "val")):
+        img_dir = os.path.join(base, "images", split)
+        ann_dir = os.path.join(base, "annotations", split)
+        os.makedirs(img_dir)
+        os.makedirs(ann_dir)
+        for i in range(n):
+            rng = np.random.default_rng(300 + i + (100 if tag == "val"
+                                                   else 0))
+            h, w = sizes[i % 4] if tag == "train" else (512, 640)
+            small = rng.integers(0, N_ADE, (h // 64 + 1, w // 64 + 1))
+            lab = np.kron(small.astype(np.uint8),
+                          np.ones((64, 64), np.uint8))[:h, :w]
+            img = rng.random((h, w, 3)) * 128 + (lab[..., None] % 64) * 2
+            stem = f"ADE_{tag}_{i:08d}"
+            Image.fromarray(img.clip(0, 255).astype(np.uint8)).save(
+                os.path.join(img_dir, stem + ".jpg"))
+            Image.fromarray(lab).save(os.path.join(ann_dir, stem + ".png"))
+    return root
+
+
+def ade_train_cfg(tmp: str, root: str, **train) -> str:
+    """configs/ade20k_convnext.yaml with its ROOT and SAVE_DIR in
+    ``tmp``, ``DEVICE_AUG: true`` and the TRAIN keys given."""
+    import yaml
+    with open(os.path.join(REPO, "configs", "ade20k_convnext.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    cfg["DATASET"]["ROOT"] = root
+    cfg["SAVE_DIR"] = os.path.join(tmp, "out_ade_train")
+    cfg["TRAIN"].update(DEVICE_AUG=True, **train)
+    path = os.path.join(tmp, "cfg_ade_train.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return path
+
+
+def phase_ade_train(dev, tmp, smi: str) -> dict:
+    """A: configs/ade20k_convnext.yaml's step (UperNet-ConvNeXt-T_CVST,
+    151 classes, batch 16, 512^2, PGD-20 at eps 4/255 through the block
+    kernels' twin, AdamW with the config's schedule) on DEVICE_AUG batches
+    from the ADE20K fixture's train split (1040^2 buffers, augment_batch on
+    the card): 2 warm-up and 4 timed steps; augment_batch's ms a batch-16
+    call (CUDA events) beside the host pipeline's (PIL
+    train_sync_transform, IterationBasedLoader) and load_raw_batch's ms a
+    batch; then the train CLI with DEVICE_AUG: true at batch 8 for 4
+    iterations (an eval and a checkpoint at the epoch's end) and
+    --resume to 5. Returns the launch counts of the steps and the CLI
+    runs."""
+    import yaml
+    from robseg_torch import kernels
+    from robseg_torch.data import IterationBasedLoader, get_segmentation_dataset
+    from robseg_torch.data.device_transforms import (augment_batch,
+                                                     load_raw_batch)
+    from robseg_torch.models import build_model as build
+    from robseg_torch.train import AttackConfig, Trainer
+    from robseg_torch.train.__main__ import build_optimizer
+    root = fixture_ade_train(tmp)
+    with open(os.path.join(REPO, "configs", "ade20k_convnext.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    t = cfg["TRAIN"]
+    base, crop, bs = t["BASE_SIZE"], t["IMAGE_SIZE"][0], t["BATCH_SIZE"]
+    buf = 2 * base
+    ds = get_segmentation_dataset("ade20k", root=root, split="train",
+                                  mode="train", base_size=base,
+                                  crop_size=crop)
+    idx = np.arange(bs) % len(ds)
+    t0 = time.perf_counter()
+    raw = load_raw_batch(ds, idx, buffer_hw=(buf, buf), max_edge=buf)
+    raw_ms = (time.perf_counter() - t0) * 1e3
+    imgs = torch.from_numpy(raw[0]).to(dev).permute(0, 3, 1, 2).contiguous()
+    msks = torch.from_numpy(raw[1]).to(dev)
+    valid = torch.from_numpy(raw[2]).to(dev)
+    gen = torch.Generator(dev).manual_seed(7)
+    aug_ms = cuda_ms(lambda: augment_batch(imgs, msks, valid, gen,
+                                           base_size=base, crop_size=crop))
+    host = iter(IterationBasedLoader(ds, batch_size=bs, max_iters=3))
+    next(host)
+    t0 = time.perf_counter()
+    next(host)
+    next(host)
+    host_ms = (time.perf_counter() - t0) / 2 * 1e3
+    batches = [augment_batch(imgs, msks, valid, gen, base_size=base,
+                             crop_size=crop) for _ in range(6)]
+    xs, ys = batches[0]
+    if not (xs.shape == (bs, 3, crop, crop) and ys.shape == (bs, crop, crop)
+            and float(xs.min()) >= 0 and float(xs.max()) <= 1
+            and int(ys.min()) >= 0 and int(ys.max()) < N_ADE):
+        raise AssertionError("augment_batch: shapes or ranges")
+    print(f"DEVICE_AUG ({bs} ADE20K fixture images, {buf}^2 buffers -> "
+          f"{crop}^2 crops): augment_batch {aug_ms:.3f} ms a call on the "
+          f"card; load_raw_batch {raw_ms:.1f} ms a batch on the host; the "
+          f"host pipeline (PIL train_sync_transform) {host_ms:.1f} ms a "
+          f"batch [{smi}]", flush=True)
+
+    kernels.reset_launch_counts()
+    torch.manual_seed(0)
+    name, backbone = cfg["MODEL"]["NAME"], cfg["MODEL"]["BACKBONE"]
+    module = build(name, backbone, N_ADE, image_size=(crop, crop),
+                   fused=False).to(dev)
+    with torch.device("meta"):
+        twin = build(name, backbone, N_ADE, fused=True)
+    opt, _ = build_optimizer(cfg, name, module, 100, 10)
+    trainer = Trainer(module, name, opt, AttackConfig(
+        name=t["ATTACK"], loss_fn=t["LOSS_FN"], eps=t["EPS"] / 255,
+        n_iters=t["N_ITERS"]), twin=twin,
+        generator=torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.reset_peak_memory_stats()
+    for xb, yb in batches[:2]:
+        trainer.train_step(xb, yb)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [trainer.train_step(xb, yb) for xb, yb in batches[2:]]
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / 4
+    losses = [float(v) for v in losses]
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"ADE20K train losses {losses}")
+    hist = trainer.eval_step(xs[:8], ys[:8], torch.zeros(
+        (N_ADE, N_ADE), device=dev))
+    if int(hist.sum()) != ys[:8].numel():
+        raise AssertionError("ADE20K eval step histogram")
+    print(f"train step ADE20K (ade20k_convnext.yaml: UperNet-ConvNeXt-"
+          f"T_CVST, {N_ADE} classes, batch {bs}, {crop}^2, PGD-"
+          f"{t['N_ITERS']} at eps {t['EPS']}/255, AdamW, --fused_attack, "
+          f"DEVICE_AUG batches): {dt:.4f} s/step, {bs / dt:.2f} train "
+          f"images/s, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+          f"GiB (4 timed steps after 2); losses "
+          f"{[round(v, 4) for v in losses]} [{smi}]", flush=True)
+    counts = kernels.launch_counts()
+    del trainer, module, twin, opt, batches, xs, ys, imgs
+    torch.cuda.empty_cache()
+
+    cfg_path = ade_train_cfg(tmp, root, BATCH_SIZE=8, EVAL_FREQ=1,
+                             EVAL_BATCHES=1)
+    run = os.path.join(tmp, "ade_train_run")
+    t0 = time.time()
+    out = run_train_cli(cfg_path, run, "--max_iters", "4", "--fused_attack")
+    t1 = time.time()
+    out2 = run_train_cli(cfg_path, run, "--max_iters", "5", "--resume",
+                         "--fused_attack")
+    t2 = time.time()
+    cli_losses = [float(v) for v in re.findall(r"Loss: ([0-9.eE+-]+)", out)]
+    evals = re.findall(r"val mIoU=([0-9.]+) aAcc=([0-9.]+)", out)
+    if not (len(cli_losses) == 2 and all(map(math.isfinite, cli_losses))
+            and len(evals) == 1 and "full mIoU" in out):
+        raise AssertionError(f"ADE20K train CLI: losses {cli_losses}, "
+                             f"evals {evals}")
+    if "Resumed from step 4" not in out2 or "full mIoU" not in out2:
+        raise AssertionError("ADE20K train CLI --resume did not resume at 4")
+    for o in (out, out2):
+        m = re.search(r"^kernel launches: (\{.*\})$", o, re.M)
+        if m is None:
+            raise AssertionError("train CLI printed no kernel launch counts")
+        for k, n in json.loads(m.group(1)).items():
+            counts[k] += n
+    print(f"train CLI ADE20K fixture (32 train / 8 val images, batch 8, "
+          f"DEVICE_AUG: true, --fused_attack): 4 iterations in "
+          f"{t1 - t0:.1f} s (process included), losses {cli_losses}, evals "
+          f"(mIoU, aAcc) {evals}; --resume to 5 in {t2 - t1:.1f} s; "
+          f"checkpoints {sorted(os.listdir(os.path.join(run, 'ckpts')))}",
+          flush=True)
+    return counts
+
+
+def phases_engine(dev, smi: str) -> dict:
+    """Phases W, N, M and A, each path's launches counted from zero.
+    Returns the counts by path."""
+    from robseg_torch import kernels
+    with timed("W worst case"):
+        phase_worst_case()
+    bundle = build_model(dev)
+    with timed("N norms"):
+        kernels.reset_launch_counts()
+        phase_norms(dev, bundle.logits_fn, smi)
+        norms_counts = kernels.launch_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        with timed("M msf"):
+            msf_counts = phase_msf(dev, tmp, bundle.logits_fn, smi)
+        del bundle
+        torch.cuda.empty_cache()
+        with timed("A ADE20K train"):
+            ade_counts = phase_ade_train(dev, tmp, smi)
+    return {"norms": norms_counts, "msf": msf_counts,
+            "ade-train": ade_counts}
+
+
 @contextlib.contextmanager
 def timed(name: str):
     """Print a phase's wall seconds when it ends."""
@@ -2223,8 +2719,15 @@ def main():
     paths = phases_sea(dev, results)
     train_counts = phases_train(dev, smi)
     print(f"train-path launches: {train_counts}", flush=True)
+    engine = phases_engine(dev, smi)
+    for label, counts in engine.items():
+        print(f"{label}-path launches: {counts}", flush=True)
     missing = [f"{k} (train path)" for k in TRAIN_PATH
                if train_counts[k] <= 0]
+    missing += [f"{k} ({label} path)" for label, need in (
+        ("norms", NORMS_PATH), ("msf", MSF_PATH),
+        ("ade-train", ADE_TRAIN_PATH)) for k in need
+        if engine[label][k] <= 0]
     for label, counts in paths.items():
         print(f"{label}-path launches: {counts}", flush=True)
     launches = {name: paths["main" if name in MAIN_PATH else
@@ -2244,6 +2747,10 @@ def main():
             if name in FAMILIES_PATH else {}),
          **({"launches_train_path": train_counts[name]}
             if name in TRAIN_PATH else {}),
+         **{f"launches_{label.replace('-', '_')}_path": engine[label][name]
+            for label, need in (("norms", NORMS_PATH), ("msf", MSF_PATH),
+                                ("ade-train", ADE_TRAIN_PATH))
+            if name in need},
          **{k: results[name][k] for k in ("max_abs_err", "ms", "plain_ms",
                                           "bound_ms", "bound_by",
                                           "library_ms", "stages", "modes",

@@ -124,12 +124,53 @@ def eval_performance(logits_fn: Callable, batches: Iterable, *,
     return stats, np.concatenate(preds_out) if preds_out else None
 
 
+def run_attack_over_loader(logits_fn: Callable, batches: Iterable, *,
+                           loss: str, eps: float, n_iter: int = 300,
+                           norm: str = "Linf",
+                           weights: Optional[np.ndarray] = None,
+                           track_loss: str = "ce-avg",
+                           early_stop: bool = True, use_rs: bool = True,
+                           n_batches: int = -1, seed: int = 0,
+                           verbose: bool = False,
+                           device: torch.device = torch.device("cpu")):
+    """Attack every batch with ``apgd_largereps``; returns a list of
+    ``(x_adv, y)`` numpy pairs (parity
+    ``robseg_tpu.attacks.sea.run_attack_over_loader``, one device, no
+    ``mesh``). The random starts draw from one ``torch.Generator(device)``
+    seeded with ``seed``, batch after batch. ``apgd_largereps`` projects
+    between its phases in Linf only, so another ``norm`` raises, as in the
+    JAX package."""
+    w = (torch.as_tensor(weights, device=device) if weights is not None
+         else None)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    out = []
+    batch_size = None
+    for i, (x, y) in enumerate(batches):
+        x_p, y_p = _to_device(x, y, device)
+        if batch_size is None:
+            batch_size = x_p.shape[0]
+        x_p, y_p, n_real = _pad_batch(x_p, y_p, batch_size)
+        x_adv, _, _ = apgd_largereps(
+            logits_fn, x_p, y_p, weights=w, norm=norm, eps=eps,
+            n_iter=n_iter, loss=loss, early_stop=early_stop,
+            track_loss=track_loss, use_rs=use_rs, generator=gen)
+        x_adv = x_adv[:n_real].cpu().numpy()
+        if verbose:
+            print(f"batch {i}: " + check_imgs(
+                x_adv, x_p[:n_real].cpu().numpy(), norm))
+        out.append((x_adv, y_p[:n_real].cpu().numpy()))
+        if i + 1 == n_batches:
+            break
+    return out
+
+
 def run_sea(logits_fn: Callable, make_loader: Callable[[], Iterable], *,
             num_classes: int, eps: float, n_iter: int = 300,
             weights: Optional[np.ndarray] = None, n_batches: int = -1,
             losses: Sequence[str] = SEA_LOSSES, seed: int = 225,
             verbose: bool = False, resume_dir: Optional[str] = None,
-            cache_tag: str = "", wc_engine: str = "python",
+            cache_tag: str = "", wc_engine: str = "auto",
             use_rs: bool = True, early_stop: bool = True,
             track_loss: str = "ce-avg", norm: str = "Linf",
             device: torch.device = torch.device("cpu")) -> Dict:

@@ -53,13 +53,6 @@ def resolve_device(cfg: Dict[str, Any]) -> torch.device:
     raise ValueError(f"Unknown DEVICE {name!r}")
 
 
-DEVICE_AUG_REFUSED = (
-    "TRAIN.DEVICE_AUG: the on-device augmentation pipeline (the JAX "
-    "package's data/device_transforms.py, a JAX affine gather) is not "
-    "ported to robseg_torch yet (ROADMAP.md, section 1 item 5); set "
-    "DEVICE_AUG: false to augment on the host")
-
-
 @dataclasses.dataclass
 class TrainSettings:
     """Typed view over the TRAIN section with the reference's defaults; a
@@ -67,7 +60,8 @@ class TrainSettings:
 
     ``ddp`` is informational: the port trains on one card (the CLI logs a
     note when it is false). ``eval_interval`` is dead in the reference
-    too. ``device_aug: true`` is refused (``DEVICE_AUG_REFUSED``).
+    too. ``device_aug: true`` augments on the card
+    (``data/device_transforms.py``).
     """
     base_size: int = 512
     image_size: tuple = (473, 473)

@@ -1,5 +1,6 @@
-"""PASCAL-VOC, VOC-aug, ADE20K (val) and synthetic data, train and val
-(numpy, PIL and scipy)."""
+"""PASCAL-VOC, VOC-aug, ADE20K and synthetic data, train and val (numpy,
+PIL and scipy), and the on-device train augmentation
+(``device_transforms.py``)."""
 
 from robseg_torch.data.datasets import (  # noqa: F401
     DATASETS, ADE20KSegmentation, SyntheticSegmentation, VOCAugSegmentation,
@@ -9,3 +10,5 @@ from robseg_torch.data.sampler import (  # noqa: F401
     IterationBasedLoader, ShardedEpochSampler, simple_eval_loader)
 from robseg_torch.data.transforms import (  # noqa: F401
     to_float_chw_last, train_sync_transform, val_sync_transform)
+from robseg_torch.data.device_transforms import (  # noqa: F401
+    augment_batch, color_jitter, load_raw_batch)

@@ -8,8 +8,7 @@ and an int32 mask: VOC folds the void label 255 into background class 0
 ADE20K has 151 classes with class 0 the background and label offset 0
 (``semseg/datasets/ade.py:61-63``). ``mode="train"`` applies
 ``train_sync_transform`` with a per-sample ``random.Random`` seeded by
-``(seed, epoch, index)``, ``mode="val"`` the center crop. The ADE20K train
-split is not ported yet (ROADMAP.md).
+``(seed, epoch, index)``, ``mode="val"`` the center crop.
 """
 
 from __future__ import annotations
@@ -136,25 +135,23 @@ class VOCAugSegmentation(SegmentationDatasetBase):
 
 
 class ADE20KSegmentation(SegmentationDatasetBase):
-    """ADEChallengeData2016, val split: every ``images/validation/*.jpg``
-    with a ``annotations/validation/*.png`` of the same stem, sorted."""
+    """ADEChallengeData2016: every ``images/<dir>/*.jpg`` with an
+    ``annotations/<dir>/*.png`` of the same stem, sorted; ``<dir>`` is
+    ``training`` for the train split, ``validation`` otherwise."""
     BASE_DIR = "ADEChallengeData2016"
     NUM_CLASS = 151
 
     def __init__(self, root: str, split: str = "val", crop_size=512,
                  n_cls: int = 151, **kw):
-        if split == "train":
-            raise NotImplementedError(
-                "the ADE20K train split is not ported yet (ROADMAP.md, "
-                "section 1 item 5)")
         if n_cls not in (150, 151):
             raise ValueError(f"Invalid number of classes: {n_cls}.")
         super().__init__(split=split, crop_size=crop_size, **kw)
         self.n_classes = n_cls
         self.offset = 0  # parity: ade.py:63
         ade_root = os.path.join(root, self.BASE_DIR)
-        img_dir = os.path.join(ade_root, "images/validation")
-        msk_dir = os.path.join(ade_root, "annotations/validation")
+        sub = "training" if split == "train" else "validation"
+        img_dir = os.path.join(ade_root, "images", sub)
+        msk_dir = os.path.join(ade_root, "annotations", sub)
         self.images: List[str] = []
         self.masks: List[str] = []
         for fn in sorted(os.listdir(img_dir)):

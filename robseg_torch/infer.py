@@ -14,7 +14,10 @@ CUDA card, ``cpu`` -> the CPU). On CUDA the hand-written kernels always
 run. ``--precision`` (``PRECISION_HELP``): ``default`` runs float32 with
 TF32 in cuBLAS and cuDNN, the reference's numerics class; ``bf16`` casts
 parameters and activations to bf16; ``f32`` is refused, as the JAX CLI
-refuses it with its block kernel. On exit the CLI prints one ``kernel
+refuses it with its block kernel. ``--no-adversarial --msf`` evaluates the
+clean model over scales (0.5, 0.75, 1.0, 1.25, 1.5) and their flips
+(``utils/sliding_window.py``). ``--wc_engine`` defaults to ``auto``, the
+C++ engine, as in the JAX CLI. On exit the CLI prints one ``kernel
 launches: {...}`` JSON line with each kernel's launch count.
 """
 
@@ -30,6 +33,7 @@ import torch
 
 from robseg_torch import kernels
 from robseg_torch.attacks.sea import SEA_LOSSES, eval_performance, run_sea
+from robseg_torch.attacks.worst_case import ENGINES
 from robseg_torch.config import (dataset_eval_geometry, load_config,
                                  model_display_name, resolve_device)
 from robseg_torch.convert import npz_state_dict
@@ -37,13 +41,19 @@ from robseg_torch.data import get_segmentation_dataset, simple_eval_loader
 from robseg_torch.models import ModelBundle, build_model
 from robseg_torch.models.vit import resize_pos_embed
 from robseg_torch.utils import Logger, class_balance_weights
+from robseg_torch.utils.sliding_window import multi_scale_flip_logits
 
 SEED = 225  # parity: tools/infer.py:25
 
+MSF_SCALES = (0.5, 0.75, 1.0, 1.25, 1.5)  # tools/infer.py:195
+# flags of the JAX CLI that have no meaning here, with the reason
 _REFUSED = {
-    "msf": "multi-scale + flip evaluation (utils/sliding_window.py)",
-    "shard": "sharded SEA across devices",
-    "fused": "--fused (the port's kernels are always on under CUDA)",
+    "shard": "--shard shards the SEA batch over a TPU mesh (shard_map); "
+             "the port runs on one card and has no mesh (ROADMAP.md, "
+             "section 1 item 9)",
+    "fused": "--fused turns the JAX package's Pallas block kernel on; "
+             "under CUDA the port's kernels are always on, so there is "
+             "nothing to turn on",
 }
 PRECISION_HELP = (
     "default: float32 parameters and activations, cuBLAS and cuDNN in TF32 "
@@ -124,6 +134,9 @@ def parse_args(argv=None):
     parser.add_argument("--adversarial", action="store_true", default=True)
     parser.add_argument("--no-adversarial", dest="adversarial",
                         action="store_false")
+    parser.add_argument("--msf", action="store_true",
+                        help="multi-scale + flip clean eval "
+                             "(with --no-adversarial)")
     parser.add_argument("--ckpt", type=str, default=None,
                         help=".pth state_dict or JAX .npz params "
                              "(overrides EVAL.MODEL_PATH)")
@@ -133,19 +146,20 @@ def parse_args(argv=None):
     parser.add_argument("--cleanup", action="store_true",
                         help="delete the argmax-logs resume cache after a "
                              "completed sweep")
-    parser.add_argument("--wc_engine", type=str, default="python",
-                        choices=["auto", "python", "native", "reference",
-                                 "reference-python"],
-                        help="worst-case-mIoU search engine (only 'python' "
-                             "is ported; 'auto' means 'python')")
+    parser.add_argument("--wc_engine", type=str, default="auto",
+                        choices=list(ENGINES),
+                        help="worst-case-mIoU search engine; 'auto' is "
+                             "'native' (C++, built with g++ at first use; "
+                             "a failed build raises), 'reference' "
+                             "replicates the published code's class-list-"
+                             "shrink quirk (worse_only.py:79-93)")
     for flag in _REFUSED:
         parser.add_argument(f"--{flag}", action="store_true",
-                            help="not ported yet")
+                            help="refused, see its error")
     args = parser.parse_args(argv)
-    for flag, what in _REFUSED.items():
+    for flag, why in _REFUSED.items():
         if getattr(args, flag):
-            parser.error(f"--{flag}: {what} is not ported to robseg_torch "
-                         "yet; it is a later slice of the port (ROADMAP.md)")
+            parser.error(why)
     if args.precision == "f32":
         parser.error(F32_REFUSED)
     return args
@@ -197,10 +211,22 @@ def main(argv=None):
                f"eps sweep = {eps_list} (/255), n_iter = {args.n_iter}")
 
     if not args.adversarial:
-        stats, _ = eval_performance(logits_fn, make_loader(),
-                                    num_classes=n_cls,
-                                    n_batches=args.n_batches, device=device)
-        logger.log(f"Clean performance: {stats.as_dict()}")
+        if args.msf:
+            # multi-scale + flip clean eval; parity: semseg/val.py:329-374
+            msf_fn = lambda x: multi_scale_flip_logits(  # noqa: E731
+                logits_fn, x, scales=MSF_SCALES, flip=True,
+                num_classes=n_cls)
+            stats, _ = eval_performance(msf_fn, make_loader(),
+                                        num_classes=n_cls,
+                                        n_batches=args.n_batches,
+                                        device=device)
+            logger.log(f"MSF clean performance: {stats.as_dict()}")
+        else:
+            stats, _ = eval_performance(logits_fn, make_loader(),
+                                        num_classes=n_cls,
+                                        n_batches=args.n_batches,
+                                        device=device)
+            logger.log(f"Clean performance: {stats.as_dict()}")
         cleanup_cache()
         _log_launches(logger)
         return

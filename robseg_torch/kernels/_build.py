@@ -1,4 +1,4 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's CUDA kernels and its host-side C++ code.
 
 Every ``robseg_torch/csrc/*.cu`` is compiled by its own ``nvcc`` process,
 all started together, and the objects are linked into one shared library
@@ -7,6 +7,10 @@ hash covers the sources and the flags, so an edited source rebuilds), which
 is loaded with ``ctypes``. The build happens at the first launch of any
 kernel, never at import: the CPU tests import every module on machines
 that have no ``nvcc``.
+
+``native_library(name)`` does the same for ``robseg_torch/native/<name>.cpp``
+with ``g++`` (``CXX``), into ``_build/lib<name>_<hash>.so``, under the same
+lock: the worst-case search engines (``attacks/worst_case.py``).
 """
 
 from __future__ import annotations
@@ -22,12 +26,17 @@ import threading
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
+NATIVE_DIR = os.path.join(_PKG, "native")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+CXX = "g++"
+CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
+
 _lock = threading.Lock()
 _lib = None
+_native = {}
 
 
 def _nvcc() -> str:
@@ -92,6 +101,39 @@ def build() -> str:
             f.write("\n".join(log))
         os.replace(lib, path)
     return path
+
+
+def _build_native(name: str) -> str:
+    src = os.path.join(NATIVE_DIR, f"{name}.cpp")
+    with open(src, "rb") as f:
+        h = hashlib.sha256(" ".join(CXX_FLAGS).encode() + f.read())
+    path = os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
+    if os.path.exists(path):
+        return path
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        lib = os.path.join(tmp, "lib.so")
+        cmd = [CXX, *CXX_FLAGS, "-o", lib, src]
+        try:
+            p = subprocess.run(cmd, capture_output=True, text=True,
+                               timeout=300)
+        except OSError as e:
+            raise RuntimeError(f"{' '.join(cmd)}: {e}") from e
+        if p.returncode != 0 or not os.path.exists(lib):
+            raise RuntimeError(f"{' '.join(cmd)} failed ({p.returncode}):\n"
+                               f"{p.stdout}\n{p.stderr}")
+        os.replace(lib, path)
+    return path
+
+
+def native_library(name: str) -> ctypes.CDLL:
+    """``robseg_torch/native/<name>.cpp`` built with ``CXX`` at first use
+    and loaded; raises ``RuntimeError`` (or ``OSError`` from the loader)
+    when the build or the load fails."""
+    with _lock:
+        if name not in _native:
+            _native[name] = ctypes.CDLL(_build_native(name))
+        return _native[name]
 
 
 _P = ctypes.c_void_p

@@ -1,7 +1,10 @@
 """Attack criteria and training losses on NCHW logits.
 
 Port of ``robseg_tpu/ops/losses.py``: the attack criteria
-(``ATTACK_CRITERIA``, ``:200-207``) and the training losses
+(``ATTACK_CRITERIA``, ``:200-207``, with ``ce-targeted``), the other
+pixelwise attack losses (``margin_loss``, ``dlr_loss``,
+``dlr_loss_targeted``, ``targeted_cross_entropy``, ``js_div_pixelwise``;
+``:111-197``) and the training losses
 (``segmentation_cross_entropy``, ``ohem_cross_entropy``, ``dice_loss``,
 ``get_train_loss``; ``:222-298``). The conventions that define the SEA
 attacks carry over exactly:
@@ -66,10 +69,10 @@ def _kl_term(log_m: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     return xlogx - p * log_m
 
 
-def js_loss(logits, target, weights=None, ignore_index=-1):
-    """JS-Avg: per-pixel Jensen-Shannon divergence between softmax(logits)
-    and one-hot(target); weights are accepted and ignored."""
-    del weights
+def js_div_pixelwise(logits, target, ignore_index=-1):
+    """Per-pixel Jensen-Shannon divergence between softmax(logits) and
+    one-hot(target); ignored labels fold to class 0 for the one-hot and
+    their loss is zeroed (``semseg/attacker.py:187-234``)."""
     valid = target != ignore_index
     t = torch.where(valid, target, 0)
     p = torch.softmax(logits, 1)
@@ -78,6 +81,60 @@ def js_loss(logits, target, weights=None, ignore_index=-1):
     log_m = torch.log(torch.clamp_min(m, _TINY))
     loss = ((_kl_term(log_m, p) + _kl_term(log_m, q)) / 2.0).sum(1)
     return torch.where(valid, loss, 0.0)
+
+
+def js_loss(logits, target, weights=None, ignore_index=-1):
+    """JS-Avg attack criterion; weights are accepted and ignored."""
+    del weights
+    return js_div_pixelwise(logits, target, ignore_index)
+
+
+def _gather_class(x: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """``x[:, target]`` per pixel as a one-hot select-and-sum: a label
+    outside [0, K) (the ignore label) gives 0, as in the JAX package."""
+    iota = torch.arange(x.shape[1], device=x.device).reshape(
+        (1, -1) + (1,) * (x.ndim - 2))
+    return torch.where(iota == target[:, None], x, 0.0).sum(1)
+
+
+def margin_loss(logits, target, ignore_index=-1):
+    """Per-pixel logit margin ``max_{c != y} z_c - z_y``
+    (``semseg/attacker.py:176-184``); an ignored label has an all-zero
+    one-hot row."""
+    valid = target != ignore_index
+    k = logits.shape[1]
+    y = F.one_hot(torch.where(valid, target, 0), k).permute(
+        0, 3, 1, 2).to(logits.dtype) * valid[:, None].to(logits.dtype)
+    logits_target = (y * logits).sum(1)
+    logits_other = (logits - 1e10 * y).amax(1)
+    return logits_other - logits_target
+
+
+def dlr_loss(logits, target):
+    """DLR loss over the class axis (``semseg/attacker.py:123-131``,
+    per pixel)."""
+    x_sorted = torch.sort(logits, dim=1).values
+    ind = (logits.argmax(1) == target).to(logits.dtype)
+    zy = _gather_class(logits, target)
+    return -(zy - x_sorted[:, -2] * ind - x_sorted[:, -1] * (1.0 - ind)) / (
+        x_sorted[:, -1] - x_sorted[:, -3] + 1e-12)
+
+
+def dlr_loss_targeted(logits, target, y_target):
+    """Targeted DLR over the class axis (``semseg/attacker.py:134-140``)."""
+    x_sorted = torch.sort(logits, dim=1).values
+    zy = _gather_class(logits, target)
+    zt = _gather_class(logits, y_target)
+    return -(zy - zt) / (x_sorted[:, -1]
+                         - 0.5 * (x_sorted[:, -3] + x_sorted[:, -4]) + 1e-12)
+
+
+def targeted_cross_entropy(logits, y_target, weights=None, ignore_index=-1):
+    """-CE toward the target class: maximising it pushes pixels to the
+    target (the working form of the reference's targeted branch,
+    ``semseg/attacker.py:600-620``, whose loss names are not in its
+    criterion registry)."""
+    return -cross_entropy_pixelwise(logits, y_target, weights, ignore_index)
 
 
 def pixel_to_img_loss(loss: torch.Tensor,
@@ -101,7 +158,16 @@ ATTACK_CRITERIA = {
     "mask-ce-avg": masked_cross_entropy,
     "mask-ce-bal": masked_cross_entropy_balanced,
     "js-avg": js_loss,
+    "ce-targeted": targeted_cross_entropy,
 }
+
+
+def make_attack_criterion(name: str) -> Callable:
+    if name not in ATTACK_CRITERIA:
+        raise ValueError(
+            f"Unknown attack criterion {name!r}; available: "
+            f"{sorted(ATTACK_CRITERIA)}")
+    return ATTACK_CRITERIA[name]
 
 
 # ---------------------------------------------------------------------------

@@ -49,6 +49,17 @@ def pixel_acc_from_hist(hist: torch.Tensor):
     return acc, macc, aacc
 
 
+def iou_acc_summary(pred: torch.Tensor, target: torch.Tensor, *,
+                    num_classes: int, ignore_label: int = -1):
+    """``(mAcc, aAcc, mIoU)``, the triple the reference's attack loop
+    prints (``semseg/attacker.py:9-52``), from one confusion matrix."""
+    hist = confusion_matrix(pred, target, num_classes=num_classes,
+                            ignore_label=ignore_label)
+    _, macc, aacc = pixel_acc_from_hist(hist)
+    _, miou = iou_from_hist(hist)
+    return macc, aacc, miou
+
+
 def per_image_intersect_union(pred: torch.Tensor, target: torch.Tensor, *,
                               num_classes: int, ignore_label: int = -1):
     """Per-image ``(intersection[K], union[K])``, each ``(B, K)`` float32;

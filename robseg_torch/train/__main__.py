@@ -20,6 +20,15 @@ CUDA card, ``cpu`` -> the CPU; no fallback). ``--fused_attack`` (UperNet)
 makes the adversarial examples through the block kernels' twin of the
 model; the update always differentiates the plain module. On exit the CLI
 prints one ``kernel launches: {...}`` JSON line.
+
+``TRAIN.DEVICE_AUG: true`` (``tools/train.py:247-283``): the host loads
+raw images into ``2 * BASE_SIZE`` square buffers (``load_raw_batch``, the
+``ShardedEpochSampler``'s indices, through ``prefetch``) and
+``augment_batch`` flips, scales, pads, blurs and crops them on the card;
+the batch stays there. Its draws come from a ``torch.Generator`` seeded
+with ``SEED + 7`` at every start, as the JAX CLI seeds its key, so a
+resumed run does not continue the draws; the batches of an epoch already
+trained are skipped on resume, as on the host path.
 """
 
 from __future__ import annotations
@@ -34,11 +43,12 @@ import numpy as np
 import torch
 
 from robseg_torch import kernels
-from robseg_torch.config import (DEVICE_AUG_REFUSED, TrainSettings,
-                                 load_config, resolve_device)
+from robseg_torch.config import TrainSettings, load_config, resolve_device
 from robseg_torch.convert import load_pir
-from robseg_torch.data import (IterationBasedLoader, get_segmentation_dataset,
-                               prefetch, simple_eval_loader)
+from robseg_torch.data import (IterationBasedLoader, ShardedEpochSampler,
+                               get_segmentation_dataset, prefetch,
+                               simple_eval_loader)
+from robseg_torch.data.device_transforms import augment_batch, load_raw_batch
 from robseg_torch.infer import set_numerics
 from robseg_torch.models import build_model
 from robseg_torch.train.checkpoint import CheckpointManager, save_weights
@@ -82,6 +92,41 @@ def build_optimizer(cfg, model_name, module, max_iters, iters_per_epoch,
         sched_cfg.get("WARMUP_RATIO", 1e-5))
     return make_optimizer(opt_cfg.get("NAME", "AdamW"), module, sched,
                           weight_decay=wd, frozen_mask=frozen_mask), sched
+
+
+def raw_batches(dataset, *, batch_size: int, max_iters: int, seed: int,
+                start_iter: int, buffer: int):
+    """``load_raw_batch`` buffers (``buffer`` square) for the iterations
+    ``start_iter`` to ``max_iters``, in the ``ShardedEpochSampler``'s
+    order (one shard), the last partial batch of an epoch dropped."""
+    sampler = ShardedEpochSampler(len(dataset), 1, seed=seed)
+    per_epoch = max(sampler.num_samples // batch_size, 1)
+    it = start_iter
+    epoch = it // per_epoch
+    while it < max_iters:
+        skip = it - epoch * per_epoch
+        for bi, idx in enumerate(sampler.global_batch_indices(epoch,
+                                                              batch_size)):
+            if bi < skip:
+                continue
+            yield load_raw_batch(dataset, idx, buffer_hw=(buffer, buffer),
+                                 max_edge=buffer)
+            it += 1
+            if it >= max_iters:
+                return
+        epoch += 1
+
+
+def device_aug_batches(raw, device, generator, *, base_size: int,
+                       crop_size: int):
+    """The raw buffers augmented on ``device``: ``(images (B, 3, crop,
+    crop), labels (B, crop, crop))`` tensors that stay there."""
+    for imgs, msks, valid in raw:
+        yield augment_batch(
+            torch.from_numpy(imgs).to(device).permute(0, 3, 1, 2)
+            .contiguous(), torch.from_numpy(msks).to(device),
+            torch.from_numpy(valid).to(device), generator,
+            base_size=base_size, crop_size=crop_size)
 
 
 def format_table(rows) -> str:
@@ -135,8 +180,6 @@ def main(argv=None):
     t = TrainSettings.from_cfg(cfg["TRAIN"])
     if t.amp:
         raise SystemExit(BF16_REFUSED)
-    if t.device_aug:
-        raise SystemExit(DEVICE_AUG_REFUSED)
     device = resolve_device(cfg)
     dataset_cfg, model_cfg = cfg["DATASET"], cfg["MODEL"]
     n_cls = dataset_cfg["N_CLS"]
@@ -216,9 +259,22 @@ def main(argv=None):
             trainer.load_state_dict(state)
             logger.log(f"Resumed from step {trainer.step}")
 
-    loader = prefetch(IterationBasedLoader(
-        train_ds, batch_size=t.batch_size, max_iters=max_iters, seed=seed,
-        start_iter=trainer.step), depth=2)
+    if t.device_aug:
+        aug_gen = torch.Generator(device=device)
+        aug_gen.manual_seed(seed + 7)
+        loader = device_aug_batches(
+            prefetch(raw_batches(train_ds, batch_size=t.batch_size,
+                                 max_iters=max_iters, seed=seed,
+                                 start_iter=trainer.step,
+                                 buffer=2 * t.base_size), depth=2),
+            device, aug_gen, base_size=t.base_size,
+            crop_size=t.image_size[0])
+    else:
+        loader = (
+            (torch.from_numpy(x).to(device), torch.from_numpy(y).to(device))
+            for x, y in prefetch(IterationBasedLoader(
+                train_ds, batch_size=t.batch_size, max_iters=max_iters,
+                seed=seed, start_iter=trainer.step), depth=2))
     eval_bs = t.batch_size
 
     def run_eval(n_batches=None):
@@ -253,8 +309,7 @@ def main(argv=None):
     eval_every = max(iters_per_epoch * t.eval_freq, 1)
 
     for it, (imgs, lbls) in enumerate(loader, start=start_it):
-        loss = trainer.train_step(torch.from_numpy(imgs).to(device),
-                                  torch.from_numpy(lbls).to(device))
+        loss = trainer.train_step(imgs, lbls)
         train_loss += float(loss)
         window += 1
         if (it + 1) % log_every == 0:

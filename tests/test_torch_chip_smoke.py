@@ -369,3 +369,60 @@ def test_train_stage_shapes(smoke):
                       (32, 29, 29, 384), (32, 14, 14, 768)]
     from robseg_torch.kernels import convnext_block as cb
     assert [cb.fused(s[-1]) for s in shapes] == [True, True, False, False]
+
+
+def test_worst_case_instance(smoke):
+    """Phase W's input: SEA's three attacks over ADE20K's 2000 val images
+    and 151 classes, seeded, with classes absent everywhere; the
+    union never below the intersection."""
+    ints, unis = smoke.worst_case_instance()
+    again = smoke.worst_case_instance()
+    assert ints.shape == unis.shape == (3, 2000, 151)
+    assert np.array_equal(ints, again[0]) and np.array_equal(unis, again[1])
+    absent = (unis == 0).all(axis=(0, 1))
+    assert absent.sum() == 20 and (unis >= ints).all()
+
+
+def test_check_in_ball(smoke):
+    """Phases N's ball and box check: Linf, L2 and L1 norms per image,
+    the 1e-4 relative slack, the projection-activity floor."""
+    x = torch.full((2, 3, 4, 4), 0.5)
+    d = torch.zeros_like(x)
+    d[0, 0, 0, :2] = 0.3  # L1 0.6, L2 0.424, Linf 0.3
+    n = smoke.pert_norms(x + d, x)
+    assert float(n["L1"][0]) == pytest.approx(0.6)
+    assert float(n["L2"][0]) == pytest.approx(0.18 ** 0.5)
+    assert float(n["Linf"][0]) == pytest.approx(0.3)
+    assert smoke.check_in_ball("t", x + d, x, "L1", 0.6, active=0.9) == \
+        pytest.approx(0.6)
+    for kw in (dict(norm="L1", eps=0.5), dict(norm="Linf", eps=0.2),
+               dict(norm="L2", eps=1.0, active=0.9)):
+        with pytest.raises(AssertionError):
+            smoke.check_in_ball("t", x + d, x, **kw)
+    with pytest.raises(AssertionError, match="box"):
+        smoke.check_in_ball("t", x + 2 * d + 0.5, x, "Linf", 10.0)
+
+
+def test_fixture_ade_train_is_an_ade20k_train_tree(smoke, tmp_path):
+    """Phase A's fixture reads as the port's ADE20K train (32 images, one
+    size above the 1040 buffer's edge) and val (8) splits."""
+    from robseg_torch.data import get_segmentation_dataset
+    root = smoke.fixture_ade_train(str(tmp_path))
+    train = get_segmentation_dataset("ade20k", root=root, split="train",
+                                     mode="train", base_size=520,
+                                     crop_size=512)
+    val = get_segmentation_dataset("ade20k", root=root, crop_size=512)
+    assert len(train) == 32 and len(val) == 8
+    sizes = {train._load(i)[0].size for i in range(4)}
+    assert max(max(s) for s in sizes) > 1040
+    x, y = val[0]
+    assert x.shape == (512, 512, 3) and 0 <= y.min() and y.max() <= 150
+
+
+def test_engine_paths_name_kernels(smoke):
+    """The launch proof of phases N, M and A: the kernels each path
+    must run, all of them kernels of the kernels line."""
+    for path in (smoke.NORMS_PATH, smoke.MSF_PATH, smoke.ADE_TRAIN_PATH):
+        assert set(path) <= set(smoke.REPLACES)
+    assert "apgd_linf_step" in smoke.NORMS_PATH
+    assert "convnext_block_dx" not in smoke.MSF_PATH

@@ -405,3 +405,72 @@ def test_bf16_models_go_through_bf16_forms(dev):
     assert counts["fpn_concat_conv_fwd_bf16"] == 1
     assert counts["fpn_concat_conv_dx_bf16"] == 1
     assert torch.isfinite(x.grad).all()
+
+
+def test_device_aug_on_card_equals_cpu(dev):
+    """``apply_augment`` on the card against the CPU on the same buffers
+    and draws: images within 1e-5 (float32 reads and blur sums), masks
+    equal."""
+    from robseg_torch.data.device_transforms import (apply_augment,
+                                                     draw_augment_params)
+    g = torch.Generator().manual_seed(0)
+    imgs = torch.rand((4, 3, 200, 180), generator=g)
+    masks = torch.randint(0, 151, (4, 200, 180), generator=g)
+    valid = torch.tensor([[200, 180], [150, 180], [200, 90], [60, 70]])
+    params = draw_augment_params(torch.Generator().manual_seed(1), 4,
+                                 base_size=96)
+    params["blur"][:2] = True
+    ci, cm_ = apply_augment(imgs, masks, valid, params, crop_size=96)
+    gi, gm = apply_augment(imgs.to(dev), masks.to(dev), valid.to(dev),
+                           {k: v.to(dev) for k, v in params.items()},
+                           crop_size=96)
+    torch.testing.assert_close(gi.cpu(), ci, atol=1e-5, rtol=0)
+    assert torch.equal(gm.cpu(), cm_)
+
+
+@pytest.mark.parametrize("eps", [0.5, 20.0])
+def test_l1_l2_projections_on_card_match_cpu(dev, eps):
+    """The L1 projection (float32 sorts, prefix sums and binary search)
+    and the L2 one on the card against the CPU: 1e-4 x max(eps, 1). The
+    prefix sums over the 2n = 36000 breakpoints accumulate in float32 on
+    the card and in float64 on the CPU (torch's CPU cumsum), and the dual
+    step divides their difference: measured 2.44e-5 at eps 0.5 on an
+    entry of 1.8 (a box repair)."""
+    from robseg_torch.ops import project_l1_ball_box, project_l2
+    g = torch.Generator().manual_seed(2)
+    x = torch.rand((3, 3, 40, 50), generator=g)
+    y = torch.randn((3, 3, 40, 50), generator=g) * 0.2
+    y[0, 0, :2] += 1.5
+    want = project_l1_ball_box(x, y, eps)
+    got = project_l1_ball_box(x.to(dev), y.to(dev), eps).cpu()
+    torch.testing.assert_close(got, want, atol=1e-4 * max(eps, 1.0), rtol=0)
+    torch.testing.assert_close(project_l2(x.to(dev) + y.to(dev), x.to(dev),
+                                          eps).cpu(),
+                               project_l2(x + y, x, eps), atol=1e-6, rtol=0)
+
+
+def test_restarts_and_summary_go_through_kernels(dev):
+    """``apgd_restarts`` (ce-targeted, Linf) runs the APGD-step kernel and
+    ``iou_acc_summary`` the confusion kernel, on a small conv model; the
+    result stays in the eps ball and the summary equals the CPU's."""
+    from robseg_torch.attacks import apgd_restarts
+    from robseg_torch.ops import iou_acc_summary
+    g = torch.Generator().manual_seed(3)
+    w = (torch.randn((5, 3, 3, 3), generator=g) * 2).to(dev)
+
+    def fn(x):
+        return torch.nn.functional.conv2d(x, w, padding=1)
+    x = torch.rand((2, 3, 24, 24), generator=g).to(dev)
+    y = torch.randint(0, 5, (2, 24, 24), generator=g).to(dev)
+    kernels.reset_launch_counts()
+    adv, _, acc = apgd_restarts(fn, x, y, eps=8 / 255, n_iter=5,
+                                loss="ce-targeted", n_restarts=2,
+                                track_loss="ce-avg", n_target_classes=5)
+    assert kernels.launch_counts()["apgd_linf_step"] == 10
+    assert float((adv - x).abs().max()) <= 8 / 255 + 1e-6
+    pred = fn(adv).argmax(1)
+    got = iou_acc_summary(pred, y, num_classes=5)
+    assert kernels.launch_counts()["confusion_matrix"] == 1
+    want = iou_acc_summary(pred.cpu(), y.cpu(), num_classes=5)
+    for a, b in zip(got, want):
+        assert float(a) == pytest.approx(float(b), abs=1e-6)

@@ -9,8 +9,10 @@ import numpy as np
 
 def test_port_imports_no_jax():
     """Every module of the package, found by walking it (the train slice's
-    too: the trainer, its CLI, PGD, checkpoints, PIR init, prefetch),
-    imports without pulling in JAX or robseg_tpu."""
+    too: the trainer, its CLI, PGD, checkpoints, PIR init, prefetch; and
+    the worst-case engines, the filter attack, multi-scale inference and
+    the on-device augmentation), imports without pulling in JAX or
+    robseg_tpu."""
     code = ("import importlib, pkgutil, sys\n"
             "import robseg_torch\n"
             "names = [m.name for m in pkgutil.walk_packages(\n"
@@ -22,7 +24,11 @@ def test_port_imports_no_jax():
             "             'robseg_torch.train.__main__',\n"
             "             'robseg_torch.train.checkpoint',\n"
             "             'robseg_torch.convert.pir',\n"
-            "             'robseg_torch.data.prefetch'):\n"
+            "             'robseg_torch.data.prefetch',\n"
+            "             'robseg_torch.attacks.worst_case',\n"
+            "             'robseg_torch.attacks.filters',\n"
+            "             'robseg_torch.utils.sliding_window',\n"
+            "             'robseg_torch.data.device_transforms'):\n"
             "    assert want in names, (want, names)\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'flax', 'optax',\n"
@@ -91,3 +97,19 @@ def test_segmenter_variants_match():
     from robseg_tpu.models import SEGMENTER_VARIANTS as ref
     from robseg_torch.models import SEGMENTER_VARIANTS
     assert SEGMENTER_VARIANTS == ref
+
+
+def test_attack_and_ops_exports_match_jax():
+    """``robseg_torch.attacks`` and ``robseg_torch.ops`` export every
+    public name of their JAX counterparts (``apgd_restarts``,
+    ``run_attack_over_loader``, ``pgd_filters``, ``iou_acc_summary``,
+    ...)."""
+    import robseg_torch.attacks as tattacks
+    import robseg_torch.ops as tops
+    import robseg_tpu.attacks as jattacks
+    import robseg_tpu.ops as jops
+    for port, ref in ((tattacks, jattacks), (tops, jops)):
+        names = {n for n in dir(ref) if not n.startswith("_")
+                 and not isinstance(getattr(ref, n), type(np))}
+        missing = sorted(n for n in names if not hasattr(port, n))
+        assert not missing, missing

@@ -19,7 +19,8 @@ CPU.
     tests/test_torch_train_models.py): 64^2 crops, batch 2, one PGD
     iteration, ``--max_iters 2 --fused_attack``, then ``--resume`` to 3;
     and the refusals (no card for ``DEVICE: tpu``,
-    ``--precision bf16``, ``--multihost``, ``TRAIN.DEVICE_AUG``).
+    ``--precision bf16``, ``--multihost``, ``TRAIN.AMP``);
+    ``TRAIN.DEVICE_AUG: true`` runs in tests/test_torch_device_aug.py.
 """
 
 import os
@@ -434,8 +435,6 @@ def test_train_cli_refusals(tmp_path, monkeypatch):
     for flags in (["--precision", "bf16"], ["--multihost"]):
         with pytest.raises(SystemExit):
             cli.parse_args(["--cfg", "x.yaml", *flags])
-    with pytest.raises(SystemExit, match="DEVICE_AUG"):
-        cli.main(["--cfg", _cfg(tmp_path, DEVICE_AUG=True)])
     with pytest.raises(SystemExit, match="bf16"):
         cli.main(["--cfg", _cfg(tmp_path, AMP=True)])
     cfg = _cfg(tmp_path)
