@@ -5,8 +5,10 @@ kernels), the SEA path of the Segmenter-ViT and PSPNet/DeepLab
 families (the APGD-step and confusion kernels), the PIR-AT train
 path (the block pair in the attack's twin, the APGD-step kernel under
 ``TRAIN.ATTACK: apgd``, the confusion kernel in the evaluations), the
-worst-case engines, the L2/L1/restart/filter attacks, multi-scale + flip
-evaluation and ADE20K training with on-device augmentation.
+same train path under bf16 products (the train CLI's ``--precision bf16``
+and ``TRAIN.AMP``), the worst-case engines, the L2/L1/restart/filter
+attacks, multi-scale + flip evaluation and ADE20K training with
+on-device augmentation.
 
     python3 chip_smoke.py
 
@@ -61,8 +63,8 @@ result line):
      largest entry (the ResNet models' float32 gradient: cosine >= 0.9999,
      see ``phase_family_vs_cpu``);
   4. APGD on the main path at batch 16, 512^2 (mask-ce-avg, tracking
-     ce-avg, random start) for 20 and for 4 iterations: whole-run and
-     marginal step*imgs/s and peak memory;
+     ce-avg, random start) for 20 and for 4 iterations (2 timed runs
+     each): whole-run and marginal step*imgs/s and peak memory;
   4p. a torch.profiler account of one main-path iteration's work (a
      forward and input gradient at batch 16): kernel time by kind and the
      device's idle share;
@@ -132,6 +134,41 @@ result line):
           peak memory, finite losses;
      the block pair, the APGD-step and the confusion kernels must have
      launched on it (``launches_train_path`` in the kernels line).
+  B. the train path under bf16 products (``robseg_torch/ops/precision.py``,
+     JAX's ``jax_default_matmul_precision=bfloat16``):
+     B1. each product under the mode (matmuls as bf16 cuBLAS products with
+         a float32 output, convolutions on bf16-rounded float32 operands
+         under TF32) against float64 on the same rounded operands, the
+         forward and both operands' gradients from a rounded cotangent,
+         each within 1e-3 of the reference's largest entry: the stem's
+         3x3/s2 conv on RGB, a stage-1 depthwise 7x7, a 3x3 2048 -> 512 at
+         119^2 (batch 2), a 384 -> 1536 linear layer, the Segmenter's
+         1025-token q k^T and a 119 -> 473 resize product, with the ms of
+         each (forward and both gradients) beside ``default``; then the CPU
+         test's coverage check on the plain UperNet at batch 2, 473^2 (a
+         TorchDispatchMode sees only bf16-representable operands in every
+         product call of a train loss and backward and of an eval input
+         gradient; the same run with the mode off must trip it);
+     then, counted from zero (the train CLI's printed counts added):
+     B2. 10a's step (fused twin) under the mode: 2 warm-up and 6 timed
+         steps, s/step, train images/s and peak beside 10a's ``default``
+         step, the first 4 losses of both from the same seed and weights,
+         every parameter moved, its profile as in 10a; one TRAIN.ATTACK
+         apgd step under the mode;
+     B3. 10d's PSPNet-R50 and Segmenter ViT-S/16 steps at batch 8 under
+         the mode (one warm-up, one timed);
+     B4. ``python -m robseg_torch.train --fused_attack`` on a fixture VOC
+         tree (16 train, 8 val images, batch 8) for 2 iterations with
+         ``--precision bf16``, then with ``TRAIN.AMP: true`` under
+         ``default``: rc 0, ``precision: bf16`` and a finite loss logged,
+         best_model.pth written;
+     the block pair, the APGD-step and the confusion kernels must have
+     launched on it (``launches_bf16_train_path``); after the count, for
+     the record only, one plain-attack step under torch.autocast(bf16)
+     (not a mode of the CLI); and
+     B5. ``utils.profiling.trace`` around one main-path APGD iteration
+         writes a Chrome trace with CUDA kernel events; ``utils.flops.
+         cost_analysis`` of the plain UperNet forward at batch 16, 512^2.
   W. the worst-case engines: ``libworst_case`` built with g++ from
      robseg_torch/native/worst_case.cpp, then native (and auto), python,
      reference and reference-python on seeded (A, N, K) = (3, 2000, 151)
@@ -233,6 +270,7 @@ import time
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 BATCH, HW, N_CLS = 16, 512, 21
@@ -1207,7 +1245,8 @@ def phase_apgd(dev, logits_fn, n_iter=20, label="main path", hw=HW,
                n_cls=N_CLS) -> dict:
     """bench.py's protocol at batch 16: whole-run and marginal
     step*imgs/s of APGD (mask-ce-avg tracking ce-avg, random start) from
-    runs of ``n_iter`` and 4 iterations, and the peak memory."""
+    2 timed runs each of ``n_iter`` and 4 iterations (2, not 3, to keep
+    the whole script near 10 minutes), and the peak memory."""
     from robseg_torch.attacks.apgd import apgd_attack
     g = torch.Generator(device=dev).manual_seed(0)
     x = torch.rand((BATCH, 3, hw, hw), device=dev, generator=g)
@@ -1228,7 +1267,7 @@ def phase_apgd(dev, logits_fn, n_iter=20, label="main path", hw=HW,
             and float((res.x_best_adv - x).abs().max()) <= EPS + 1e-6):
         raise AssertionError("APGD result outside the eps ball or not finite")
     run(4)
-    reps = 3
+    reps = 2
     t0 = time.perf_counter()
     for _ in range(reps):
         run(4)
@@ -1825,20 +1864,24 @@ def upernet_trainer(dev, fused_attack: bool, attack: str = "pgd"):
 
 
 def time_train_steps(trainer, x, y, warm: int, timed_steps: int):
-    """(s/step, peak GiB, losses): ``warm`` steps, then ``timed_steps``
-    timed on the host's clock between two device syncs."""
+    """(s/step, peak GiB, losses of every step, the StepTimer): ``warm``
+    steps, then ``timed_steps`` each timed by ``utils.profiling.
+    StepTimer`` on the host's clock, from a device sync to the sync on
+    its loss."""
+    from robseg_torch.utils.profiling import StepTimer
     torch.cuda.reset_peak_memory_stats()
-    for _ in range(warm):
-        trainer.train_step(x, y)
+    losses = [trainer.train_step(x, y) for _ in range(warm)]
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    losses = [trainer.train_step(x, y) for _ in range(timed_steps)]
-    torch.cuda.synchronize()
-    dt = (time.perf_counter() - t0) / timed_steps
+    timer = StepTimer()
+    for _ in range(timed_steps):
+        timer.start()
+        losses.append(trainer.train_step(x, y))
+        timer.stop(losses[-1])
     losses = [float(v) for v in losses]
     if not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"non-finite train loss: {losses}")
-    return dt, torch.cuda.max_memory_allocated() / 2 ** 30, losses
+    return (timer.mean, torch.cuda.max_memory_allocated() / 2 ** 30,
+            losses, timer)
 
 
 def profile_train_step(trainer, x, y, label: str):
@@ -1953,11 +1996,13 @@ def phase_train_twin(dev):
     torch.cuda.empty_cache()
 
 
-def phase_train_step(dev, smi: str):
+def phase_train_step(dev, smi: str) -> dict:
     """10a: the full-width train step with the fused and the plain attack,
     its profile, the parameters and BatchNorm statistics moving, and one
-    eval step (the confusion kernel)."""
+    eval step (the confusion kernel). Returns (s/step, peak GiB, losses)
+    by attack."""
     x, y = train_inputs(dev, TRAIN_BATCH, TRAIN_HW, N_CLS)
+    out = {}
     for fused in (True, False):
         label = "fused attack" if fused else "plain attack"
         trainer = upernet_trainer(dev, fused)
@@ -1965,7 +2010,9 @@ def phase_train_step(dev, smi: str):
         p0 = {n: p.detach().clone() for n, p in m.named_parameters()}
         s0 = {n: b.clone() for n, b in m.named_buffers()
               if n.endswith(("running_mean", "running_var"))}
-        dt, peak, losses = time_train_steps(trainer, x, y, 2, TRAIN_TIMED)
+        dt, peak, losses, timer = time_train_steps(trainer, x, y, 2,
+                                                   TRAIN_TIMED)
+        out[label] = dt, peak, losses
         still = [n for n, p in m.named_parameters()
                  if torch.equal(p.detach(), p0[n])]
         stale = [n for n, b in m.named_buffers() if n in s0
@@ -1977,8 +2024,9 @@ def phase_train_step(dev, smi: str):
         print(f"train step ({label}), UperNet-ConvNeXt-T_CVST, 21 classes, "
               f"batch {TRAIN_BATCH}, {TRAIN_HW}^2, AdamW, PGD-5: "
               f"{dt:.4f} s/step, {TRAIN_BATCH / dt:.2f} train images/s, "
-              f"peak {peak:.2f} GiB ({TRAIN_TIMED} timed steps after 2); "
-              f"losses {[round(v, 4) for v in losses]}; all "
+              f"peak {peak:.2f} GiB ({TRAIN_TIMED} timed steps after 2; "
+              f"StepTimer {timer.summary()}); losses "
+              f"{[round(v, 4) for v in losses]}; all "
               f"{len(p0)} parameters and {len(s0)} BatchNorm statistics "
               f"moved [{smi}]", flush=True)
         profile_train_step(trainer, x, y, label)
@@ -1990,17 +2038,18 @@ def phase_train_step(dev, smi: str):
                                      "every pixel")
         del trainer, m, p0
         torch.cuda.empty_cache()
+    return out
 
 
-def phase_train_apgd(dev):
+def phase_train_apgd(dev, label: str = ""):
     """10b: one step with TRAIN.ATTACK apgd (Linf, random start, ce-avg,
     x_best; the APGD-step kernel) through the fused twin."""
     x, y = train_inputs(dev, TRAIN_BATCH, TRAIN_HW, N_CLS)
     trainer = upernet_trainer(dev, True, attack="apgd")
-    dt, peak, losses = time_train_steps(trainer, x, y, 1, 1)
-    print(f"train step with TRAIN.ATTACK apgd (5 iterations, fused twin), "
-          f"batch {TRAIN_BATCH}, {TRAIN_HW}^2: {dt:.4f} s (second step), "
-          f"peak {peak:.2f} GiB, loss {losses[0]:.4f}", flush=True)
+    dt, peak, losses, _ = time_train_steps(trainer, x, y, 1, 1)
+    print(f"train step{label} with TRAIN.ATTACK apgd (5 iterations, fused "
+          f"twin), batch {TRAIN_BATCH}, {TRAIN_HW}^2: {dt:.4f} s (second "
+          f"step), peak {peak:.2f} GiB, losses {losses}", flush=True)
     del trainer
     torch.cuda.empty_cache()
 
@@ -2088,15 +2137,16 @@ TRAIN_FAMILIES = (
      "ade20k_segmenter.yaml", N_ADE, 512))
 
 
-def phase_train_families(dev, smi: str):
-    """10d: 3 train steps at batch 8 on PSPNet-R50 (SGD, x10 head scales,
-    473^2) and Segmenter ViT-S/16 (timm-poly SGD, 512^2, 151 classes),
-    PGD-5 through the plain module: s/step, peak memory, finite loss."""
+def phase_train_families(dev, smi: str, timed: int = 2, label: str = ""):
+    """10d: 1 + ``timed`` train steps at batch 8 on PSPNet-R50 (SGD, x10
+    head scales, 473^2) and Segmenter ViT-S/16 (timm-poly SGD, 512^2, 151
+    classes), PGD-5 through the plain module: s/step, peak memory, finite
+    loss."""
     import yaml
     from robseg_torch.models import build_model as build
     from robseg_torch.train import AttackConfig, Trainer
     from robseg_torch.train.__main__ import build_optimizer
-    for label, name, backbone, cfg_name, k, side in TRAIN_FAMILIES:
+    for fam, name, backbone, cfg_name, k, side in TRAIN_FAMILIES:
         with open(os.path.join(REPO, "configs", cfg_name)) as f:
             cfg = yaml.safe_load(f)
         torch.manual_seed(0)
@@ -2108,13 +2158,345 @@ def phase_train_families(dev, smi: str):
             eps=4 / 255, n_iters=5),
             generator=torch.Generator(device=dev).manual_seed(0))
         x, y = train_inputs(dev, 8, side, k)
-        dt, peak, losses = time_train_steps(trainer, x, y, 1, 2)
-        print(f"train step {label} ({cfg_name}, {side}^2, {k} classes, "
+        dt, peak, losses, _ = time_train_steps(trainer, x, y, 1, timed)
+        print(f"train step{label} {fam} ({cfg_name}, {side}^2, {k} classes, "
               f"batch 8, PGD-5): {dt:.4f} s/step, {8 / dt:.2f} train "
               f"images/s, peak {peak:.2f} GiB, losses "
               f"{[round(v, 4) for v in losses]} [{smi}]", flush=True)
         del trainer, module, opt
         torch.cuda.empty_cache()
+
+
+# ----------------------------------------------------------------------------
+# Phase B: PIR-AT training under bf16 products (the train CLI's --precision
+# bf16 and TRAIN.AMP: the port's jax_default_matmul_precision=bfloat16)
+# ----------------------------------------------------------------------------
+
+# the kernels the bf16 train path must launch (from zero, before it runs)
+BF16_TRAIN_PATH = ("convnext_block_fwd", "convnext_block_dx",
+                   "apgd_linf_step", "confusion_matrix")
+PRODUCT_TOL = 1e-3  # of max|ref|: TF32 inside cuDNN's transforms, not bf16
+PRODUCT_OPS = ("convolution", "convolution_backward", "mm", "bmm", "addmm",
+               "baddbmm")
+
+
+def product_cases(dev):
+    """B1's products at the train path's shapes: (label, fn, operands); the
+    first two operands are the product's, a third is a bias."""
+    from robseg_torch.ops import precision as P
+    from robseg_torch.ops.resize import _matrix
+    g = torch.Generator(device=dev).manual_seed(11)
+
+    def r(*shape, scale=1.0):
+        return torch.randn(shape, device=dev, generator=g) * scale
+    return [
+        ("stem 3x3/s2 conv, 3 -> 48 channels, (2, 3, 473, 473)",
+         lambda x, w, b: P.conv2d(x, w, b, 2, 1),
+         [r(2, 3, 473, 473), r(48, 3, 3, 3), r(48)]),
+        ("depthwise 7x7 conv, stage 1, (2, 192, 59, 59)",
+         lambda x, w, b: P.conv2d(x, w, b, 1, 3, 1, 192),
+         [r(2, 192, 59, 59), r(192, 1, 7, 7), r(192)]),
+        ("3x3 conv 2048 -> 512 at 119^2, batch 2",
+         lambda x, w: P.conv2d(x, w, None, 1, 1),
+         [r(2, 2048, 119, 119), r(512, 2048, 3, 3, scale=0.01)]),
+        ("linear 384 -> 1536, (2, 29, 29, 384)",
+         lambda x, w, b: P.linear(x, w, b),
+         [r(2, 29, 29, 384), r(1536, 384), r(1536)]),
+        ("Segmenter attention q k^T, (2, 6, 1025, 64)",
+         lambda q, k: P.matmul(q, k.transpose(-2, -1)),
+         [r(2, 6, 1025, 64), r(2, 6, 1025, 64)]),
+        ("resize 119 -> 473 along H, (473, 119) @ (2, 21, 119, 119)",
+         lambda m, x: P.matmul(m, x),
+         [_matrix("bilinear", 119, 473, dev, torch.float32).clone(),
+          r(2, 21, 119, 119)]),
+    ]
+
+
+def phase_bf16_products(dev):
+    """B1: each product under the mode on the card (matmuls bf16 cuBLAS
+    with a float32 output, convolutions on rounded operands under TF32)
+    against float64 on the same rounded operands: forward, and the two
+    product operands' gradients from a rounded cotangent, each within
+    1e-3 of the reference's largest entry; and the ms of a forward and
+    both gradients under the mode beside the same call under the CLI's
+    ``default`` numerics (TF32). Returns the errors by case."""
+    from robseg_torch.ops.precision import bf16_products, round_bf16
+    errs = {}
+    for label, fn, ops in product_cases(dev):
+        ops = [t.requires_grad_(True) for t in ops]
+        with bf16_products():
+            y = fn(*ops)
+            g = torch.randn(y.shape, device=dev, generator=torch.Generator(
+                device=dev).manual_seed(12))
+            dgot = torch.autograd.grad(y, ops[:2], g)
+
+        def fwd_bwd():
+            torch.autograd.grad(fn(*ops), ops[:2], g)
+        with bf16_products():
+            ms = cuda_ms(fwd_bwd)
+        ms_default = cuda_ms(fwd_bwd)
+        ref = [round_bf16(t.detach()).double().requires_grad_(True)
+               for t in ops[:2]] + [t.detach().double() for t in ops[2:]]
+        with strict_float32():
+            yr = fn(*ref)
+            dref = torch.autograd.grad(yr, ref[:2], round_bf16(g).double())
+        e = [rel_max_err(a.double(), b) for a, b in
+             zip((y.detach(),) + dgot, (yr.detach(),) + dref)]
+        errs[label] = e
+        print(f"bf16 product {label}: error / max|ref| against float64 on "
+              f"the rounded operands: forward {e[0]:.3e}, d{{op 1}} "
+              f"{e[1]:.3e}, d{{op 2}} {e[2]:.3e}; forward + both "
+              f"gradients {ms:.3f} ms, under default (TF32) "
+              f"{ms_default:.3f} ms", flush=True)
+        if not all(math.isfinite(v) and v <= PRODUCT_TOL for v in e):
+            raise AssertionError(f"bf16 product {label}: errors {e}")
+        del ops, y, dgot, ref, yr, dref
+    torch.cuda.empty_cache()
+    return errs
+
+
+class ProductOperands(TorchDispatchMode):
+    """Counts the product calls (forward and backward) and names those
+    with a floating operand that is not bf16-representable."""
+
+    def __init__(self):
+        super().__init__()
+        self.calls, self.bad = {}, []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from robseg_torch.ops.precision import round_bf16
+        kwargs = kwargs or {}
+        name = func.overloadpacket.__name__
+        if name in PRODUCT_OPS:
+            self.calls[name] = self.calls.get(name, 0) + 1
+            for a in list(args) + list(kwargs.values()):
+                if (isinstance(a, torch.Tensor) and a.is_floating_point()
+                        and not torch.equal(a, round_bf16(a))):
+                    self.bad.append(str(func))
+                    break
+        return func(*args, **kwargs)
+
+
+def phase_bf16_coverage(dev):
+    """B1, the CPU test's coverage check once on the card: under the mode
+    every convolution, convolution backward and matmul of the plain
+    UperNet's train-mode loss and backward and of its eval-mode input
+    gradient (batch 2, 473^2) takes only bf16-representable operands; the
+    same run with the mode off must trip the check."""
+    from robseg_torch.models import build_model as build
+    from robseg_torch.ops.precision import bf16_products
+    torch.manual_seed(0)
+    m = build(*UPERNET, N_CLS, fused=False).to(dev)
+    x, y = train_inputs(dev, 2, TRAIN_HW, N_CLS)
+
+    def run():
+        m.train()(x, y)[0].backward()
+        xg = x.clone().requires_grad_(True)
+        m.eval()(xg).logsumexp(1).sum().backward()
+    seen = {}
+    for on in (True, False):
+        with bf16_products(on), ProductOperands() as mode:
+            run()
+        seen[on] = mode
+    on, off = seen[True], seen[False]
+    print(f"bf16 coverage on the card (plain UperNet, batch 2, {TRAIN_HW}^2, "
+          f"train loss + backward, eval input gradient): product calls "
+          f"{on.calls}, {len(on.bad)} with an operand that is not "
+          f"bf16-representable; with the mode off {len(off.bad)} of "
+          f"{sum(off.calls.values())}", flush=True)
+    if on.bad or not on.calls.get("convolution_backward") or not off.bad:
+        raise AssertionError(f"bf16 coverage: {sorted(set(on.bad))}, "
+                             f"calls {on.calls}, off {len(off.bad)}")
+    del m
+    torch.cuda.empty_cache()
+
+
+def phase_bf16_train_step(dev, smi: str, ref: dict):
+    """B2: the full-width train step (10a's, fused twin) under bf16
+    products: 2 warm-up and 6 timed steps beside 10a's ``default`` step
+    (``ref``) from this run, the first 4 losses of both from the same
+    seed and weights, every parameter moved; then one TRAIN.ATTACK apgd
+    step under the mode."""
+    from robseg_torch.ops.precision import bf16_products
+    x, y = train_inputs(dev, TRAIN_BATCH, TRAIN_HW, N_CLS)
+    trainer = upernet_trainer(dev, True)
+    m = trainer.module
+    p0 = {n: p.detach().clone() for n, p in m.named_parameters()}
+    with bf16_products():
+        dt, peak, losses, timer = time_train_steps(trainer, x, y, 2,
+                                                   TRAIN_TIMED)
+    still = [n for n, p in m.named_parameters()
+             if torch.equal(p.detach(), p0[n])]
+    if still:
+        raise AssertionError(f"bf16 train step: parameters that did not "
+                             f"move {still[:5]}")
+    dt0, peak0, losses0 = ref["fused attack"]
+    print(f"train step (fused attack) under bf16 products, UperNet-ConvNeXt-"
+          f"T_CVST, batch {TRAIN_BATCH}, {TRAIN_HW}^2, AdamW, PGD-5: "
+          f"{dt:.4f} s/step, {TRAIN_BATCH / dt:.2f} train images/s, peak "
+          f"{peak:.2f} GiB (StepTimer {timer.summary()}); default in this "
+          f"run (10a): {dt0:.4f} s/step, {TRAIN_BATCH / dt0:.2f} train "
+          f"images/s, peak {peak0:.2f} GiB; all {len(p0)} parameters moved "
+          f"[{smi}]", flush=True)
+    print(f"first 4 losses, same seed and weights: default "
+          f"{[round(v, 6) for v in losses0[:4]]}, bf16 products "
+          f"{[round(v, 6) for v in losses[:4]]}", flush=True)
+    with bf16_products():
+        profile_train_step(trainer, x, y, "fused attack, bf16 products")
+    del trainer, m, p0
+    torch.cuda.empty_cache()
+    with bf16_products():
+        phase_train_apgd(dev, label=" under bf16 products")
+    torch.cuda.empty_cache()
+    return dt, peak
+
+
+def phase_autocast_record(dev, smi: str, ref: dict):
+    """For the record only, not a mode of the CLI: one step (after one
+    warm-up) of the plain-attack trainer under torch.autocast(bf16),
+    beside 10a's plain-attack ``default`` step. A failure is printed, not
+    raised: autocast is no part of the port."""
+    x, y = train_inputs(dev, TRAIN_BATCH, TRAIN_HW, N_CLS)
+    trainer = upernet_trainer(dev, False)
+    dt0, peak0, _ = ref["plain attack"]
+    try:
+        with torch.autocast("cuda", torch.bfloat16):
+            dt, peak, losses, _ = time_train_steps(trainer, x, y, 1, 1)
+        print(f"record only: train step (plain attack) under torch.autocast"
+              f"(bfloat16): {dt:.4f} s (second step), {TRAIN_BATCH / dt:.2f}"
+              f" train images/s, peak {peak:.2f} GiB, losses {losses}; "
+              f"default plain-attack step (10a) {dt0:.4f} s, peak "
+              f"{peak0:.2f} GiB [{smi}]", flush=True)
+    except RuntimeError as e:
+        print(f"record only: autocast step not measured ({e})", flush=True)
+    del trainer
+    torch.cuda.empty_cache()
+
+
+def phase_bf16_train_cli(tmp: str) -> dict:
+    """B4: ``python -m robseg_torch.train --fused_attack`` on a fixture VOC
+    tree (16 train, 8 val images; batch 8, an eval at iteration 2) for 2
+    iterations with ``--precision bf16``, then with ``TRAIN.AMP: true``
+    under ``--precision default``: each exits 0, logs ``precision: bf16``
+    and a finite loss, and writes best_model.pth. Returns the launch
+    counts the two runs printed."""
+    import yaml
+    root = os.path.join(tmp, "voc_train16")
+    subprocess.run([sys.executable, os.path.join(
+        REPO, "tools", "make_fixture_dataset.py"), "--root", root,
+        "--n_train", "16", "--n_val", "8"], check=True)
+    counts = {}
+    for flag, amp in (("bf16", False), ("default", True)):
+        with open(os.path.join(REPO, "configs",
+                               "pascalvoc_convnext.yaml")) as f:
+            cfg = yaml.safe_load(f)
+        cfg["DATASET"].update(NAME="pascalvoc", ROOT=root)
+        cfg["TRAIN"].update(BATCH_SIZE=8, EVAL_FREQ=1, EVAL_BATCHES=1,
+                            AMP=amp)
+        cfg["SAVE_DIR"] = os.path.join(tmp, "out_bf16")
+        cfg_path = os.path.join(tmp, f"cfg_bf16_{flag}.yaml")
+        with open(cfg_path, "w") as f:
+            yaml.safe_dump(cfg, f)
+        run = os.path.join(tmp, f"train_bf16_{flag}")
+        t0 = time.time()
+        out = run_train_cli(cfg_path, run, "--max_iters", "2",
+                            "--fused_attack", "--precision", flag)
+        losses = [float(v) for v in re.findall(r"Loss: ([0-9.eE+-]+)", out)]
+        m = re.search(r"^kernel launches: (\{.*\})$", out, re.M)
+        if not (re.search(r"^precision: bf16 \(", out, re.M) and losses
+                and all(math.isfinite(v) for v in losses) and m
+                and os.path.exists(os.path.join(run, "best_model.pth"))):
+            raise AssertionError(f"train CLI --precision {flag}, TRAIN.AMP "
+                                 f"{amp}: {out[-3000:]}")
+        for k, n in json.loads(m.group(1)).items():
+            counts[k] = counts.get(k, 0) + n
+        print(f"train CLI --precision {flag}, TRAIN.AMP {amp} (fixture VOC, "
+              f"16 train / 8 val, batch 8, --fused_attack): 2 iterations in "
+              f"{time.time() - t0:.1f} s (process included), logs precision "
+              f"bf16, losses {losses}, best_model.pth written", flush=True)
+    return counts
+
+
+def phase_utilities(dev, tmp: str):
+    """B5: ``utils.profiling.trace`` around one main-path APGD iteration
+    (batch 16, 512^2) writes a non-empty Chrome trace with CUDA kernel
+    events (an empty window taken again up to 3 times, as ``profiled``
+    does); ``utils.flops.cost_analysis`` of the plain UperNet forward at
+    batch 16, 512^2 (FlopCounterMode counts torch's products, not the
+    block kernels', so the plain module)."""
+    from robseg_torch.attacks.apgd import apgd_attack
+    from robseg_torch.models import build_model as build
+    from robseg_torch.utils.flops import cost_analysis
+    from robseg_torch.utils.profiling import trace
+    bundle = build_model(dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.rand((BATCH, 3, HW, HW), device=dev, generator=g)
+    y = torch.randint(0, N_CLS, (BATCH, HW, HW), device=dev, generator=g)
+
+    def one_iteration():
+        apgd_attack(bundle.logits_fn, x, y, norm="Linf", eps=EPS, n_iter=1,
+                    use_rs=True, loss="mask-ce-avg", track_loss="ce-avg",
+                    generator=torch.Generator(device=dev).manual_seed(1)
+                    ).acc.cpu()
+    one_iteration()
+    for attempt in range(3):
+        log_dir = os.path.join(tmp, f"trace{attempt}")
+        with trace(log_dir):
+            one_iteration()
+        files = [os.path.join(log_dir, f) for f in os.listdir(log_dir)]
+        with open(files[0]) as f:
+            events = json.load(f).get("traceEvents", [])
+        kernels_ = [e for e in events if e.get("cat") == "kernel"]
+        if kernels_:
+            break
+        print("utils.profiling.trace: window with no device time",
+              flush=True)
+    if not kernels_:
+        raise AssertionError("utils.profiling.trace wrote no CUDA kernel "
+                             "event in 3 windows")
+    busy = sum(e.get("dur", 0) for e in kernels_) / 1e3
+    print(f"utils.profiling.trace around one main-path APGD iteration "
+          f"(batch {BATCH}, {HW}^2): {os.path.basename(files[0])}, "
+          f"{os.path.getsize(files[0])} bytes, {len(kernels_)} CUDA kernel "
+          f"events, {busy:.1f} ms of kernels", flush=True)
+    del bundle
+    torch.cuda.empty_cache()
+    torch.manual_seed(0)
+    m = build(*UPERNET, N_CLS, fused=False).to(dev).eval()
+    with torch.no_grad():
+        ca = cost_analysis(m, x)
+    print(f"utils.flops.cost_analysis of the UperNet-ConvNeXt-T_CVST forward "
+          f"(plain module, batch {BATCH}, {HW}^2): "
+          f"{ca['flops'] / 1e9:.1f} GFLOPs", flush=True)
+    del m
+    torch.cuda.empty_cache()
+
+
+def phases_bf16_train(dev, smi: str, ref: dict) -> dict:
+    """Phase B: B1 (products and coverage), then B2-B4 counted from zero
+    (the train CLI's printed counts added), then the autocast record and
+    B5. Returns the bf16 train path's launch counts."""
+    from robseg_torch import kernels
+    from robseg_torch.ops.precision import bf16_products
+    with timed("B1 bf16 products"):
+        phase_bf16_products(dev)
+        phase_bf16_coverage(dev)
+    kernels.reset_launch_counts()
+    with timed("B2 bf16 train step"):
+        phase_bf16_train_step(dev, smi, ref)
+    with timed("B3 bf16 train families"), bf16_products():
+        phase_train_families(dev, smi, timed=1,
+                             label=" under bf16 products")
+    with tempfile.TemporaryDirectory() as tmp:
+        with timed("B4 bf16 train CLI"):
+            cli_counts = phase_bf16_train_cli(tmp)
+        counts = kernels.launch_counts()
+        for name, n in cli_counts.items():
+            counts[name] += n
+        with timed("B5 autocast record, utilities"):
+            phase_autocast_record(dev, smi, ref)
+            phase_utilities(dev, tmp)
+    return counts
 
 
 # ----------------------------------------------------------------------------
@@ -2669,16 +3051,16 @@ def phases_sea(dev, results) -> dict:
             "bf16": bf16_counts, "families": families_counts}
 
 
-def phases_train(dev, smi: str) -> dict:
+def phases_train(dev, smi: str):
     """Phase 10, the PIR-AT train path: 10t, then 10a-10d counted from
     zero (the train CLI's printed counts added). Returns its launch
-    counts."""
+    counts and 10a's steps by attack."""
     from robseg_torch import kernels
     with timed("10t twin vs plain"):
         phase_train_twin(dev)
     kernels.reset_launch_counts()
     with timed("10a train step"):
-        phase_train_step(dev, smi)
+        steps = phase_train_step(dev, smi)
     with timed("10b train apgd"):
         phase_train_apgd(dev)
     with tempfile.TemporaryDirectory() as tmp:
@@ -2691,7 +3073,7 @@ def phases_train(dev, smi: str) -> dict:
         counts[name] += n
     print(f"SEA CLI on the trained best_model.pth, launches (not the train "
           f"path's): {sea_counts}", flush=True)
-    return counts
+    return counts, steps
 
 
 def main():
@@ -2717,13 +3099,17 @@ def main():
 
     results = {}
     paths = phases_sea(dev, results)
-    train_counts = phases_train(dev, smi)
+    train_counts, steps = phases_train(dev, smi)
     print(f"train-path launches: {train_counts}", flush=True)
+    bf16_train = phases_bf16_train(dev, smi, steps)
+    print(f"bf16-train-path launches: {bf16_train}", flush=True)
     engine = phases_engine(dev, smi)
     for label, counts in engine.items():
         print(f"{label}-path launches: {counts}", flush=True)
     missing = [f"{k} (train path)" for k in TRAIN_PATH
                if train_counts[k] <= 0]
+    missing += [f"{k} (bf16 train path)" for k in BF16_TRAIN_PATH
+                if bf16_train[k] <= 0]
     missing += [f"{k} ({label} path)" for label, need in (
         ("norms", NORMS_PATH), ("msf", MSF_PATH),
         ("ade-train", ADE_TRAIN_PATH)) for k in need
@@ -2747,6 +3133,8 @@ def main():
             if name in FAMILIES_PATH else {}),
          **({"launches_train_path": train_counts[name]}
             if name in TRAIN_PATH else {}),
+         **({"launches_bf16_train_path": bf16_train[name]}
+            if name in BF16_TRAIN_PATH else {}),
          **{f"launches_{label.replace('-', '_')}_path": engine[label][name]
             for label, need in (("norms", NORMS_PATH), ("msf", MSF_PATH),
                                 ("ade-train", ADE_TRAIN_PATH))

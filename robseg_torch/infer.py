@@ -28,7 +28,6 @@ import json
 import os
 import shutil
 
-import numpy as np
 import torch
 
 from robseg_torch import kernels
@@ -40,7 +39,7 @@ from robseg_torch.convert import npz_state_dict
 from robseg_torch.data import get_segmentation_dataset, simple_eval_loader
 from robseg_torch.models import ModelBundle, build_model
 from robseg_torch.models.vit import resize_pos_embed
-from robseg_torch.utils import Logger, class_balance_weights
+from robseg_torch.utils import Logger, class_balance_weights, fix_seeds
 from robseg_torch.utils.sliding_window import multi_scale_flip_logits
 
 SEED = 225  # parity: tools/infer.py:25
@@ -174,8 +173,7 @@ def main(argv=None):
     n_cls = test_cfg["N_CLS"]
     _, crop_size = dataset_eval_geometry(test_cfg["NAME"])
 
-    np.random.seed(SEED)
-    torch.manual_seed(SEED)
+    fix_seeds(SEED)
     module = build_eval_model(cfg, n_cls, crop_size)
     ckpt_path = args.ckpt or test_cfg.get("MODEL_PATH")
     if ckpt_path and os.path.exists(str(ckpt_path)):

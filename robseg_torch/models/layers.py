@@ -25,6 +25,10 @@ MLP-tail kernel (``models/convnext.py``). The norms then run torch's own
 kernels, which take a bf16 input's statistics in float32 and round the
 output once, as flax's norms do. For float32 inputs and parameters every
 layer is the plain torch one.
+
+``Conv2d`` and ``Linear`` compute their products through
+``ops.precision``: the plain torch call, or bf16-rounded operands under
+the train CLI's bf16 products (``jax_default_matmul_precision=bfloat16``).
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from robseg_torch.ops import precision
 from robseg_torch.ops.resize import adaptive_avg_pool
 
 LN_EPS = 1e-6
@@ -49,13 +54,17 @@ def promote(x: torch.Tensor, *params):
 
 
 class Conv2d(nn.Conv2d):
+    """Zero padding only; its product through ``ops.precision``."""
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self._conv_forward(*promote(x, self.weight, self.bias))
+        return precision.conv2d(*promote(x, self.weight, self.bias),
+                                self.stride, self.padding, self.dilation,
+                                self.groups)
 
 
 class Linear(nn.Linear):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(*promote(x, self.weight, self.bias))
+        return precision.linear(*promote(x, self.weight, self.bias))
 
 
 class LayerNorm(nn.LayerNorm):

@@ -29,6 +29,7 @@ import torch.nn.functional as F
 
 from robseg_torch.models.layers import LayerNorm, Linear, trunc_normal_
 from robseg_torch.models.vit import LN_EPS, Block, VisionTransformer
+from robseg_torch.ops import precision
 from robseg_torch.ops.resize import resize_bilinear
 
 
@@ -82,11 +83,12 @@ class MaskTransformer(nn.Module):
             x = blk(x)
         x = self.decoder_norm(x)
         patches, cls_feat = x[:, :-self.n_cls], x[:, -self.n_cls:]
-        patches = torch.matmul(patches, self.proj_patch)
-        cls_feat = torch.matmul(cls_feat, self.proj_classes)
+        patches = precision.matmul(patches, self.proj_patch)
+        cls_feat = precision.matmul(cls_feat, self.proj_classes)
         patches = patches / patches.norm(dim=-1, keepdim=True)
         cls_feat = cls_feat / cls_feat.norm(dim=-1, keepdim=True)
-        masks = self.mask_norm(torch.matmul(patches, cls_feat.transpose(1, 2)))
+        masks = self.mask_norm(precision.matmul(patches,
+                                                cls_feat.transpose(1, 2)))
         return _to_grid(masks, im_size[0] // self.patch_size)
 
 

@@ -36,6 +36,7 @@ import torch.nn.functional as F
 from robseg_torch.kernels.fpn_conv import fpn_concat_conv
 from robseg_torch.models.convnext import CONVNEXT_SETTINGS, ConvNeXt
 from robseg_torch.models.layers import AdaptiveAvgPool, Conv2d, ConvModule
+from robseg_torch.ops import precision
 from robseg_torch.ops.losses import segmentation_cross_entropy
 from robseg_torch.ops.resize import resize_bilinear
 
@@ -85,8 +86,8 @@ class UperNetHead(nn.Module):
         ch = self.channels
         acc = None
         for i, f in enumerate(fpn_outs):
-            o = F.conv2d(f, conv.weight[:, i * ch:(i + 1) * ch].to(f.dtype),
-                         padding=1)
+            o = precision.conv2d(
+                f, conv.weight[:, i * ch:(i + 1) * ch].to(f.dtype), padding=1)
             acc = o if acc is None else acc + o
         s, t = (v.to(acc.dtype)[:, None, None] for v in self._bn_fold())
         return F.relu(acc * s + t)

@@ -17,7 +17,8 @@ Attention is written out as ``(q @ k^T) * head_dim**-0.5``, softmax, then
 product and is not used. Every LayerNorm has torch's eps of 1e-5.
 
 No Pallas kernel runs in these modules in the JAX package; their products
-are plain ``torch.matmul``, ``F.linear`` and ``conv2d``. The layers with
+go through ``ops.precision`` (plain ``torch.matmul``, ``F.linear`` and
+``conv2d`` unless the train CLI's bf16 products are on). The layers with
 parameters compute in JAX's promoted dtype (``models/layers.py``).
 """
 
@@ -32,6 +33,7 @@ import torch.nn.functional as F
 
 from robseg_torch.models.layers import (Conv2d, DropPath, Dropout, LayerNorm,
                                         Linear, trunc_normal_)
+from robseg_torch.ops import precision
 from robseg_torch.ops.resize import resize_bilinear
 
 LN_EPS = 1e-5
@@ -69,9 +71,9 @@ class Attention(nn.Module):
         qkv = self.qkv(x).reshape(b, n, 3, self.heads, hd).permute(
             2, 0, 3, 1, 4)
         q, k, v = qkv[0], qkv[1], qkv[2]              # (b, heads, n, hd)
-        attn = torch.matmul(q, k.transpose(-2, -1)) * (hd ** -0.5)
+        attn = precision.matmul(q, k.transpose(-2, -1)) * (hd ** -0.5)
         attn = attn.softmax(dim=-1)
-        y = torch.matmul(attn, v).transpose(1, 2).reshape(b, n, c)
+        y = precision.matmul(attn, v).transpose(1, 2).reshape(b, n, c)
         return self.drop(self.proj(y))
 
 

@@ -22,6 +22,8 @@ import functools
 import numpy as np
 import torch
 
+from robseg_torch.ops import precision
+
 
 def _interp_matrix_np(in_size: int, out_size: int,
                       align_corners: bool = False) -> np.ndarray:
@@ -76,7 +78,7 @@ def _separable(x: torch.Tensor, kind: str, out_hw) -> torch.Tensor:
         return x
     mh = _matrix(kind, h, oh, x.device, x.dtype)
     mw = _matrix(kind, w, ow, x.device, x.dtype)
-    return torch.matmul(torch.matmul(mh, x), mw.t())
+    return precision.matmul(precision.matmul(mh, x), mw.t())
 
 
 def resize_bilinear(x: torch.Tensor, out_hw,

@@ -13,7 +13,16 @@ as reference-layout ``best_model.pth`` / ``final_model.pth``, which
 
 Usage:
     python -m robseg_torch.train --cfg configs/pascalvoc_convnext.yaml \
-        [--max_iters N] [--resume --run_dir DIR] [--fused_attack]
+        [--max_iters N] [--resume --run_dir DIR] [--fused_attack] \
+        [--precision default|bf16|f32]
+
+Precision as the JAX CLI resolves it (``tools/train.py:98-111``):
+``default`` trains in float32 with TF32 in cuBLAS and cuDNN; ``bf16``,
+or ``TRAIN.AMP: true`` under ``default``, in bf16 products
+(``ops/precision.py``: every product of the models takes bf16-rounded
+operands and accumulates in float32; parameters, optimizer state, norms
+and losses stay float32; the kernels are unchanged), around the whole
+run; ``f32`` in float32 with TF32 off, ``TRAIN.AMP`` ignored.
 
 The config's ``DEVICE`` picks the device (``tpu``/``gpu``/``cuda`` -> the
 CUDA card, ``cpu`` -> the CPU; no fallback). ``--fused_attack`` (UperNet)
@@ -51,6 +60,7 @@ from robseg_torch.data import (IterationBasedLoader, ShardedEpochSampler,
 from robseg_torch.data.device_transforms import augment_batch, load_raw_batch
 from robseg_torch.infer import set_numerics
 from robseg_torch.models import build_model
+from robseg_torch.ops.precision import bf16_products
 from robseg_torch.train.checkpoint import CheckpointManager, save_weights
 from robseg_torch.train.optim import (freeze_mask, make_optimizer,
                                       pspnet_lr_scales)
@@ -60,12 +70,21 @@ from robseg_torch.train.trainer import (AttackConfig, Trainer,
                                         metrics_from_hist)
 from robseg_torch.utils import Logger
 
-BF16_REFUSED = (
-    "--precision bf16 / TRAIN.AMP: the JAX trainer sets "
-    "jax_default_matmul_precision=bfloat16 (bf16 passes inside float32 "
-    "matmuls and convolutions), which has no exact torch counterpart; "
-    "training under bf16 is not ported yet (ROADMAP.md)")
 UPERNET = "UperNetForSemanticSegmentation"
+PRECISION_LOG = {
+    "bf16": "bf16 products (float32 parameters and accumulation, every "
+            "product's operands rounded to bf16)",
+    "default": "float32, TF32 in cuBLAS and cuDNN",
+    "f32": "float32, TF32 off",
+}
+
+
+def resolve_precision(flag: str, amp: bool) -> str:
+    """The precision a run trains in, ``tools/train.py:98-111``:
+    ``--precision bf16`` means bf16 products, and so does ``TRAIN.AMP``
+    under ``default``; ``f32`` ignores ``TRAIN.AMP``."""
+    return "bf16" if flag == "bf16" or (flag == "default" and amp) \
+        else flag
 
 
 def build_optimizer(cfg, model_name, module, max_iters, iters_per_epoch,
@@ -153,8 +172,11 @@ def parse_args(argv=None):
     parser.add_argument("--precision", type=str, default="default",
                         choices=["default", "bf16", "f32"],
                         help="default: TF32 in cuBLAS and cuDNN (the "
-                             "reference's numerics class); f32: TF32 off; "
-                             "bf16: refused, see its error")
+                             "reference's numerics class), bf16 products "
+                             "under TRAIN.AMP; f32: TF32 off, TRAIN.AMP "
+                             "ignored; bf16: every product of the models "
+                             "takes bf16-rounded operands, float32 "
+                             "accumulation (ops/precision.py)")
     parser.add_argument("--fused_attack", action="store_true",
                         help="make the adversarial examples through the "
                              "block kernels (UperNet only); the update "
@@ -163,23 +185,26 @@ def parse_args(argv=None):
     if args.multihost:
         parser.error("--multihost: the port trains on one card (ROADMAP.md, "
                      "section 1 item 9)")
-    if args.precision == "bf16":
-        parser.error(BF16_REFUSED)
     return args
 
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.precision == "default":
-        set_numerics()
-    else:  # f32
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-
     cfg = load_config(args.cfg)
     t = TrainSettings.from_cfg(cfg["TRAIN"])
-    if t.amp:
-        raise SystemExit(BF16_REFUSED)
+    precision = resolve_precision(args.precision, t.amp)
+    if precision == "f32":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    else:
+        set_numerics()
+    # JAX's global config covers the whole run: attacks, updates, evals
+    with bf16_products(precision == "bf16"):
+        run(args, cfg, t, precision)
+
+
+def run(args, cfg, t: TrainSettings, precision: str):
+    """The training run of ``main`` once its numerics are set."""
     device = resolve_device(cfg)
     dataset_cfg, model_cfg = cfg["DATASET"], cfg["MODEL"]
     n_cls = dataset_cfg["N_CLS"]
@@ -226,6 +251,8 @@ def main(argv=None):
     max_iters = args.max_iters or t.epochs * iters_per_epoch
     logger.log(f"device={device} batch={t.batch_size} "
                f"iters/epoch={iters_per_epoch} max_iters={max_iters}")
+    logger.log(f"precision: {precision} ({PRECISION_LOG[precision]}; "
+               f"--precision {args.precision}, TRAIN.AMP {t.amp})")
 
     frozen = None
     if t.freeze:

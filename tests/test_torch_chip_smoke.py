@@ -426,3 +426,45 @@ def test_engine_paths_name_kernels(smoke):
         assert set(path) <= set(smoke.REPLACES)
     assert "apgd_linf_step" in smoke.NORMS_PATH
     assert "convnext_block_dx" not in smoke.MSF_PATH
+
+
+def _calls(fn) -> list:
+    """The names of the functions ``fn``'s body calls, in source order."""
+    import ast
+    import inspect
+    import textwrap
+    tree = ast.parse(textwrap.dedent(inspect.getsource(fn)))
+    return [n.func.id for n in ast.walk(tree)
+            if isinstance(n, ast.Call) and isinstance(n.func, ast.Name)]
+
+
+def test_phase_b_runs_from_main_in_order(smoke):
+    """Phase B (the train path under bf16 products) runs after the train
+    path and before the engines, counts its own launches, and runs B1 to
+    B5 in order; the kernels it must launch are the train path's."""
+    main = _calls(smoke.main)
+    order = [main.index(f) for f in ("phases_sea", "phases_train",
+                                     "phases_bf16_train", "phases_engine")]
+    assert order == sorted(order)
+    b = _calls(smoke.phases_bf16_train)
+    steps = ["phase_bf16_products", "phase_bf16_coverage",
+             "phase_bf16_train_step", "phase_train_families",
+             "phase_bf16_train_cli", "phase_autocast_record",
+             "phase_utilities"]
+    assert [f for f in b if f in steps] == steps
+    assert set(smoke.BF16_TRAIN_PATH) == set(smoke.TRAIN_PATH)
+
+
+def test_product_operands_sees_unrounded_operands(smoke):
+    """B1's coverage check: no flag under bf16 products, one per product
+    call with the mode off."""
+    from robseg_torch.ops import precision
+    x = torch.rand(1, 4, 9, 9, requires_grad=True)
+    w = torch.rand(5, 4, 3, 3, requires_grad=True)
+    with precision.bf16_products(), smoke.ProductOperands() as on:
+        precision.conv2d(x, w, None, 1, 1).sum().backward()
+    assert on.calls == {"convolution": 1, "convolution_backward": 1}
+    assert not on.bad
+    with smoke.ProductOperands() as off:
+        precision.conv2d(x, w, None, 1, 1).sum().backward()
+    assert len(off.bad) == 2

@@ -474,3 +474,43 @@ def test_restarts_and_summary_go_through_kernels(dev):
     want = iou_acc_summary(pred.cpu(), y.cpu(), num_classes=5)
     for a, b in zip(got, want):
         assert float(a) == pytest.approx(float(b), abs=1e-6)
+
+
+@pytest.mark.parametrize("case", ["conv", "depthwise", "linear", "matmul",
+                                  "resize"])
+def test_bf16_products_on_card_match_float64(dev, case):
+    """The train CLI's bf16 products on the card (matmuls as bf16 cuBLAS
+    with a float32 output, convolutions on rounded operands under TF32)
+    against float64 on the same rounded operands: forward and both
+    operands' gradients from a rounded cotangent within 1e-3 of the
+    reference's largest entry (chip_smoke.py phase B1's bound)."""
+    from robseg_torch.ops import precision as P
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def r(*shape):
+        return torch.randn(shape, device=dev, generator=g)
+    fn, ops = {
+        "conv": (lambda x, w: P.conv2d(x, w, None, 2, 1),
+                 [r(2, 16, 33, 33), r(24, 16, 3, 3)]),
+        "depthwise": (lambda x, w: P.conv2d(x, w, None, 1, 3, 1, 32),
+                      [r(2, 32, 19, 19), r(32, 1, 7, 7)]),
+        "linear": (lambda x, w: P.linear(x, w), [r(2, 9, 9, 96),
+                                                 r(384, 96)]),
+        "matmul": (lambda q, k: P.matmul(q, k.transpose(-2, -1)),
+                   [r(2, 3, 65, 32), r(2, 3, 65, 32)]),
+        "resize": (lambda m, x: P.matmul(m, x), [r(40, 17),
+                                                 r(2, 5, 17, 17)]),
+    }[case]
+    ops = [t.requires_grad_(True) for t in ops]
+    with P.bf16_products():
+        y = fn(*ops)
+        gy = torch.randn(y.shape, device=dev, generator=g)
+        got = (y,) + torch.autograd.grad(y, ops, gy)
+    ref = [P.round_bf16(t.detach()).double().requires_grad_(True)
+           for t in ops]
+    yr = fn(*ref)
+    want = (yr,) + torch.autograd.grad(yr, ref, P.round_bf16(gy).double())
+    for a, b in zip(got, want):
+        assert a.dtype == torch.float32
+        err = float((a.double() - b).abs().max() / b.abs().max())
+        assert err <= 1e-3, err

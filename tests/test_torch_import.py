@@ -11,8 +11,9 @@ def test_port_imports_no_jax():
     """Every module of the package, found by walking it (the train slice's
     too: the trainer, its CLI, PGD, checkpoints, PIR init, prefetch; and
     the worst-case engines, the filter attack, multi-scale inference and
-    the on-device augmentation), imports without pulling in JAX or
-    robseg_tpu."""
+    the on-device augmentation; the bf16 products, the contrastive losses,
+    seeds, palettes, profiling and FLOPs), imports without pulling in JAX
+    or robseg_tpu."""
     code = ("import importlib, pkgutil, sys\n"
             "import robseg_torch\n"
             "names = [m.name for m in pkgutil.walk_packages(\n"
@@ -28,7 +29,13 @@ def test_port_imports_no_jax():
             "             'robseg_torch.attacks.worst_case',\n"
             "             'robseg_torch.attacks.filters',\n"
             "             'robseg_torch.utils.sliding_window',\n"
-            "             'robseg_torch.data.device_transforms'):\n"
+            "             'robseg_torch.data.device_transforms',\n"
+            "             'robseg_torch.ops.precision',\n"
+            "             'robseg_torch.ops.contrastive',\n"
+            "             'robseg_torch.utils.misc',\n"
+            "             'robseg_torch.utils.visualize',\n"
+            "             'robseg_torch.utils.profiling',\n"
+            "             'robseg_torch.utils.flops'):\n"
             "    assert want in names, (want, names)\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'flax', 'optax',\n"
@@ -113,3 +120,13 @@ def test_attack_and_ops_exports_match_jax():
                  and not isinstance(getattr(ref, n), type(np))}
         missing = sorted(n for n in names if not hasattr(port, n))
         assert not missing, missing
+
+
+def test_utils_exports_match_jax():
+    """``robseg_torch.utils`` exports every public name of
+    ``robseg_tpu.utils`` (``fix_seeds``, ``model_param_count``, ...)."""
+    import robseg_torch.utils as tutils
+    import robseg_tpu.utils as jutils
+    names = {n for n in dir(jutils) if not n.startswith("_")
+             and not isinstance(getattr(jutils, n), type(np))}
+    assert names and not sorted(n for n in names if not hasattr(tutils, n))

@@ -18,9 +18,9 @@ CPU.
     test's process through ``runpy``, UperNet cut small as in
     tests/test_torch_train_models.py): 64^2 crops, batch 2, one PGD
     iteration, ``--max_iters 2 --fused_attack``, then ``--resume`` to 3;
-    and the refusals (no card for ``DEVICE: tpu``,
-    ``--precision bf16``, ``--multihost``, ``TRAIN.AMP``);
-    ``TRAIN.DEVICE_AUG: true`` runs in tests/test_torch_device_aug.py.
+    and the refusals (no card for ``DEVICE: tpu``, ``--multihost``);
+    ``TRAIN.DEVICE_AUG: true`` runs in tests/test_torch_device_aug.py,
+    ``--precision`` and ``TRAIN.AMP`` in tests/test_torch_bf16_train.py.
 """
 
 import os
@@ -431,12 +431,14 @@ def test_train_cli_on_cpu_trains_and_resumes(tmp_path, monkeypatch, capsys):
 
 
 def test_train_cli_refusals(tmp_path, monkeypatch):
+    """``--multihost`` is a parser error and ``DEVICE: tpu`` without a
+    card raises; ``--precision bf16`` and ``TRAIN.AMP`` train (their runs:
+    tests/test_torch_bf16_train.py)."""
     from robseg_torch.train import __main__ as cli
-    for flags in (["--precision", "bf16"], ["--multihost"]):
-        with pytest.raises(SystemExit):
-            cli.parse_args(["--cfg", "x.yaml", *flags])
-    with pytest.raises(SystemExit, match="bf16"):
-        cli.main(["--cfg", _cfg(tmp_path, AMP=True)])
+    with pytest.raises(SystemExit):
+        cli.parse_args(["--cfg", "x.yaml", "--multihost"])
+    assert cli.parse_args(["--cfg", "x.yaml", "--precision",
+                           "bf16"]).precision == "bf16"
     cfg = _cfg(tmp_path)
     with open(cfg) as f:
         c = yaml.safe_load(f)
