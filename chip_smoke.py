@@ -36,10 +36,13 @@ result line):
      one PyTorch library call that computes the same function where there
      is one (for the MLP tail: its products, one torch.matmul each at the
      mode's operand precision), and the card's bound for the work;
-     The confusion kernel at 16 x 512^2 with K = 21 and 151, random and
-     blocky (32 x 32 regions) labels, summed and per image: bit for bit
-     against its plain version, its first design and torch.bincount, with
-     the times of all four and the two kernels' own device times;
+     The confusion kernel at 16 x 512^2 with K = 21 and 151 (its shared
+     form) and 239, 300, 459 and 847 (its global form), random and blocky
+     (32 x 32 regions) labels, summed and per image: bit for bit against
+     its plain version, torch.bincount and, at K = 21 and 151, its first
+     design, with the times of each and the kernels' own device times;
+     then ``iou_acc_summary`` and ``per_image_intersect_union`` at K = 847
+     on the card against the same calls on the CPU;
   2b. (TF32 off) the bf16 I/O forms of the block pair (the four stages and
      2 x 119 x 119 x 96) and the FPN pair (4 x (16, 128, 128, 512)): each
      bit for bit equal to its float32 form on the upcast inputs with the
@@ -214,7 +217,10 @@ rather than failing the run.
 
 Tolerances. Block forward atol = rtol = 2e-2 and block input gradient max
 error <= 2e-2 of its largest entry (bf16 matmul operands against the
-float32 plain version, TF32 off); APGD step and confusion histogram exact.
+float32 plain version, TF32 off); APGD step and confusion histogram exact;
+the metrics at K = 847 on the card against the CPU: histograms,
+intersections and unions exact, (mAcc, aAcc, mIoU) to 1e-6 (float32 means
+over 847 classes summed in another order).
 FPN concat-conv and bf16-operand MLP tail against plain versions that
 round where the kernels round: input gradient max error <= 2e-3 of its
 largest entry; forward max abs error <= 1e-3 for the FPN, and max error
@@ -615,22 +621,39 @@ def label_maps(shape, k, blocky, dev, seed):
     return pred.masked_fill(ign, -1), tgt.masked_fill(ign, -1)
 
 
+# the confusion phase's class counts, each with whether the shared form's
+# first design (one K x K histogram in shared memory, K <= 238) runs beside
+# the kernel: VOC's 21 and ADE20K's 151 (the shared form), the global
+# form's first K, 300, PASCAL-Context's 459 and ADE20K-full's 847
+CONFUSION_CASES = ((N_CLS, True), (N_ADE, True), (239, False), (300, False),
+                   (459, False), (847, False))
+
+
 def phase_confusion(dev, results):
     """The confusion kernel against its plain version, bit for bit, at the
-    SEA batch (16 x 512^2): K = 21 and 151, random and blocky labels,
-    summed and per image; times of the kernel, of its first design
-    (``confusion_matrix_v1_cuda``), of the plain version and of one
-    torch.bincount of the precomputed bin index, and the bytes bound."""
+    SEA batch (16 x 512^2): each K of ``CONFUSION_CASES``, random and
+    blocky labels, summed and per image; times of the kernel, of the first
+    design where it runs (``confusion_matrix_v1_cuda``), of the plain
+    version and of one torch.bincount of the precomputed bin index, and
+    the bytes bound. Then the metrics that call the kernel at K = 847 on
+    the card against the same calls on the CPU."""
     from robseg_torch.kernels import confusion as cf
     cases = []
-    for seed, (k, blocky) in enumerate(((N_CLS, False), (N_CLS, True),
-                                        (N_ADE, False), (N_ADE, True))):
+    launches0 = cf.confusion_matrix_cuda.launches
+    for seed, (k, blocky, with_v1) in enumerate(
+            (k, blocky, v1) for k, v1 in CONFUSION_CASES
+            for blocky in (False, True)):
         pred, tgt = label_maps((BATCH, HW, HW), k, blocky, dev, seed)
         for per_image in (False, True):
             kw = dict(num_classes=k, per_image=per_image)
+            form = cf.plan(k, BATCH if per_image else 1,
+                           HW * HW * (1 if per_image else BATCH),
+                           torch.cuda.get_device_properties(
+                               dev).multi_processor_count)["form"]
             want = cf.confusion_matrix_plain(pred, tgt, **kw)
             got = cf.confusion_matrix_cuda(pred, tgt, **kw)
-            old = cf.confusion_matrix_v1_cuda(pred, tgt, **kw)
+            old = cf.confusion_matrix_v1_cuda(pred, tgt, **kw) if with_v1 \
+                else want
             # the library yardstick: one torch.bincount of the precomputed
             # (image,) t * K + p index of the counted pixels
             img = torch.arange(BATCH, device=dev).view(BATCH, 1, 1)
@@ -645,34 +668,81 @@ def phase_confusion(dev, results):
                                      "design or bincount differs from plain")
             new = lambda: cf.confusion_matrix_cuda(pred, tgt, **kw)  # noqa
             v1 = lambda: cf.confusion_matrix_v1_cuda(pred, tgt, **kw)  # noqa
-            t = [cuda_ms(new), cuda_ms(v1),
+            t = [cuda_ms(new), cuda_ms(v1) if with_v1 else None,
                  cuda_ms(lambda: cf.confusion_matrix_plain(pred, tgt, **kw)),
                  cuda_ms(lambda: torch.bincount(idx, minlength=n_bins))]
             # each histogram kernel's own device time (torch.profiler):
             # the CUDA-event times above include the wrapper's host work
-            dt = [sum(ms for name, ms, _ in kernel_split(fn)
-                      if "confusion" in name) or None for fn in (new, v1)]
+            dt = [confusion_device_ms(new),
+                  confusion_device_ms(v1) if with_v1 else None]
             # pred and target int64 in, the float32 histogram out
             bms, bby = bound(16 * tgt.numel() + 4 * n_bins, {"f32": 0})
             labels = "blocky" if blocky else "random"
+            first = (f"first design {t[1]:.4f} ms (device {fmt_ms(dt[1])})"
+                     if with_v1 else "first design not run (K > 238)")
             print(f"confusion_matrix (16,512,512) K={k} {labels} per_image="
-                  f"{per_image}: exact (kernel, first design, bincount), "
-                  f"kernel {t[0]:.4f} ms (device {fmt_ms(dt[0])}), first "
-                  f"design {t[1]:.4f} ms (device {fmt_ms(dt[1])}), plain "
-                  f"{t[2]:.3f} ms, library (torch.bincount) {t[3]:.4f} ms, "
-                  f"bound {bms:.4f} ms ({bby}), share {bms / t[0]:.1%} "
-                  f"(device {fmt_share(bms, dt[0])})", flush=True)
+                  f"{per_image} ({form} form): exact (kernel"
+                  f"{', first design' if with_v1 else ''}, bincount), "
+                  f"kernel {t[0]:.4f} ms (device {fmt_ms(dt[0])}), {first}, "
+                  f"plain {t[2]:.3f} ms, library (torch.bincount) "
+                  f"{t[3]:.4f} ms, bound {bms:.4f} ms ({bby}), share "
+                  f"{bms / t[0]:.1%} (device {fmt_share(bms, dt[0])})",
+                  flush=True)
             cases.append({"k": k, "labels": labels, "per_image": per_image,
-                          "ms": t[0], "device_ms": dt[0], "v1_ms": t[1],
-                          "v1_device_ms": dt[1], "plain_ms": t[2],
-                          "library_ms": t[3], "bound_ms": bms,
-                          "bound_by": bby, "share": bms / t[0]})
+                          "form": form, "ms": t[0], "device_ms": dt[0],
+                          "v1_ms": t[1], "v1_device_ms": dt[1],
+                          "plain_ms": t[2], "library_ms": t[3],
+                          "bound_ms": bms, "bound_by": bby,
+                          "share": bms / t[0]})
         del pred, tgt, idx
+    print(f"confusion phase: {cf.confusion_matrix_cuda.launches - launches0} "
+          "kernel launches, "
+          f"{sum(c['form'] == 'global' for c in cases)} of {len(cases)} "
+          "cases in the global form", flush=True)
+    confusion_callers_check(dev, 847)
     head = cases[0]  # K = 21, random labels, summed: the row's numbers
     results["confusion_matrix"] = {
         "max_abs_err": 0.0, "cases": cases,
         **{key: head[key] for key in ("ms", "plain_ms", "library_ms",
                                       "bound_ms", "bound_by")}}
+
+
+def confusion_device_ms(fn):
+    """The confusion kernels' own device ms in one call of ``fn``, or None
+    where torch.profiler recorded no device time."""
+    return sum(ms for name, ms, _ in kernel_split(fn)
+               if "confusion" in name) or None
+
+
+def confusion_callers_check(dev, k):
+    """``iou_acc_summary`` and ``per_image_intersect_union`` on the card
+    (the kernel's global form at K = 847) against the same calls on CPU
+    copies (the plain version): histograms, intersections and unions bit
+    for bit; the (mAcc, aAcc, mIoU) triple to 1e-6, the float32 means of
+    847 classes being summed in another order on the card."""
+    from robseg_torch.ops.metrics import (confusion_matrix, iou_acc_summary,
+                                          per_image_intersect_union)
+    pred, tgt = label_maps((BATCH, HW, HW), k, True, dev, 100)
+    cpu = (pred.cpu(), tgt.cpu())
+    kw = dict(num_classes=k, ignore_label=-1)
+    if not torch.equal(confusion_matrix(pred, tgt, **kw).cpu(),
+                       confusion_matrix(*cpu, **kw)):
+        raise AssertionError(f"confusion_matrix K={k}: card != CPU")
+    for got, want in zip(per_image_intersect_union(pred, tgt, **kw),
+                         per_image_intersect_union(*cpu, **kw)):
+        if not torch.equal(got.cpu(), want):
+            raise AssertionError(f"per_image_intersect_union K={k}: card "
+                                 "!= CPU")
+    got = torch.stack(iou_acc_summary(pred, tgt, **kw)).cpu()
+    want = torch.stack(iou_acc_summary(*cpu, **kw))
+    err = float((got - want).abs().max())
+    if not err <= 1e-6:
+        raise AssertionError(f"iou_acc_summary K={k}: card {got.tolist()} "
+                             f"against CPU {want.tolist()}")
+    print(f"metrics K={k} (16,512,512) on the card against the CPU: "
+          "confusion_matrix and per_image_intersect_union exact, "
+          f"iou_acc_summary (mAcc, aAcc, mIoU) {got.tolist()} max abs diff "
+          f"{err:.3g}", flush=True)
 
 
 def phase_fpn(dev, results):

@@ -145,7 +145,8 @@ _F = ctypes.c_float
 # c_void_p: a bare Python int would be truncated to 32 bits)
 _SIGNATURES = {
     "robseg_apgd_linf_step": [_P] * 6 + [_I64, _I64, _F, _F, _F, _P],
-    "robseg_confusion": [_P, _P, _P, _I64, _I64, _I, _I64, _I, _I, _P],
+    "robseg_confusion": [_P, _P, _P, _I64, _I64, _I, _I64, _I, _I, _I, _I,
+                         _I, _I64, _P],
     "robseg_confusion_v1": [_P, _P, _P, _I64, _I64, _I, _I64, _I, _P],
     "robseg_convnext_block_supported": [_I],
     "robseg_convnext_block_scratch": [_I] * 5,

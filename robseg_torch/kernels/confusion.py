@@ -9,14 +9,20 @@ Returns float32 counts, ``(K, K)`` summed over the batch or ``(B, K, K)``
 per image. A CPU tensor takes the plain version; a CUDA tensor launches the
 kernel, and anything the kernel does not take raises.
 
-The kernel writes float32 counts directly when every count stays below
-2^24 (exact in float32, as in the JAX kernel's float32 accumulator), and
-int32 counts, converted after, above that. ``confusion_matrix_v1_cuda``
-launches the kernel's first design, for ``chip_smoke.py``'s comparison
-only; nothing in the package calls it.
+The kernel takes any number of classes ``K >= 1``, in one of two forms that
+``plan`` chooses: the shared form for ``K <= 238`` (the whole K x K int32
+histogram in shared memory, per warp where it fits) and the global form
+above that (the histogram in the output in global memory, the diagonal in
+shared memory). Both write float32 counts directly when every count stays
+below 2^24 (exact in float32, as in the JAX kernel's float32 accumulator),
+and int32 counts, converted after, above that.
+``confusion_matrix_v1_cuda`` launches the shared form's first design, for
+``chip_smoke.py``'s comparison only; nothing in the package calls it.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -39,12 +45,47 @@ def confusion_matrix_plain(pred, target, *, num_classes: int,
     return hist.to(torch.float32)
 
 
-MAX_CLASSES = 238  # one K x K int32 histogram in 227 KB of shared memory
 F32_EXACT = 2 ** 24
+THREADS = 512           # csrc/confusion.cu: kThreads
+WARPS = THREADS // 32
+RUN = 8                 # pixels a thread takes at once
+SMEM_TWO_BLOCKS = 113 * 1024  # two blocks fit on an SM
+# the largest K of the shared form: one K x K int32 copy of 226,576 bytes
+SHARED_MAX_CLASSES = 238
+FORMS = {"shared": 0, "global": 1}
+
+
+def plan(k: int, rows: int, n: int, sms: int) -> dict:
+    """The kernel's form and launch for ``rows`` histograms (the images
+    when per image, else 1) of ``n`` pixels each on a card with ``sms``
+    SMs. ``width`` is the ints of one shared copy: the K x K histogram in
+    the shared form, the diagonal (at most 28,928 classes, the rest go to
+    global memory) in the global form; ``copies`` one a warp where they
+    fit in a two-blocks-a-SM budget. The grid is the card's resident blocks
+    split over the rows, with no block below one 8-pixel group a thread."""
+    if k <= SHARED_MAX_CLASSES:
+        form, width = "shared", k * k
+    else:
+        form, width = "global", min(k, SMEM_TWO_BLOCKS // 4)
+    copies = max(1, min(WARPS, SMEM_TWO_BLOCKS // (4 * width)))
+    smem = 4 * copies * width
+    per_sm = 2 if smem <= SMEM_TWO_BLOCKS else 1
+    need = (n // RUN + THREADS - 1) // THREADS
+    grid_x = max(1, min(sms * per_sm // rows, need))
+    return {"form": form, "width": width, "copies": copies, "smem": smem,
+            "blocks_per_sm": per_sm, "grid": (grid_x, rows)}
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _checked(pred, target, num_classes):
     """pred and target as contiguous, 16-byte aligned (B, P) int64 rows."""
+    if num_classes < 1:
+        raise ValueError("confusion_matrix: num_classes must be at least 1; "
+                         f"got {num_classes}")
     if not pred.is_cuda:
         raise ValueError(f"confusion_matrix_cuda: pred is on {pred.device}, "
                          "not CUDA")
@@ -55,9 +96,6 @@ def _checked(pred, target, num_classes):
         if t.dtype != torch.int64 or t.device != pred.device:
             raise ValueError(f"confusion_matrix: {name} must be int64 on "
                              f"{pred.device}; got {t.dtype} on {t.device}")
-    if not 1 <= num_classes <= MAX_CLASSES:
-        raise ValueError("confusion_matrix: num_classes must be in "
-                         f"[1, {MAX_CLASSES}]")
     b = pred.shape[0]
     rows = []
     for t in (pred, target):
@@ -68,11 +106,13 @@ def _checked(pred, target, num_classes):
 
 def confusion_matrix_cuda(pred, target, *, num_classes: int,
                           ignore_label: int = -1, per_image: bool = False):
-    """Launch the kernel; pred and target int64 of one shape on one CUDA
-    device, leading dimension the batch."""
+    """Launch the kernel in the form ``plan`` chooses; pred and target int64
+    of one shape on one CUDA device, leading dimension the batch."""
     pred, target = _checked(pred, target, num_classes)
     b, n = pred.shape
     k = num_classes
+    rows, row_pixels = (b, n) if per_image else (1, b * n)
+    launch = plan(k, rows, row_pixels, _sms(pred.device.index))
     f32 = b * n < F32_EXACT
     hist = torch.empty((b, k, k) if per_image else (k, k),
                        dtype=torch.float32 if f32 else torch.int32,
@@ -80,7 +120,8 @@ def confusion_matrix_cuda(pred, target, *, num_classes: int,
     err = _build.library().robseg_confusion(
         pred.data_ptr(), target.data_ptr(), hist.data_ptr(), b, n, k,
         int(ignore_label), 0 if per_image else 1, int(f32),
-        torch.cuda.current_stream(pred.device).cuda_stream)
+        FORMS[launch["form"]], launch["copies"], launch["width"],
+        launch["grid"][0], torch.cuda.current_stream(pred.device).cuda_stream)
     _build.check(err, "confusion_matrix")
     confusion_matrix_cuda.launches += 1
     return hist if f32 else hist.to(torch.float32)
@@ -91,8 +132,12 @@ confusion_matrix_cuda.launches = 0
 
 def confusion_matrix_v1_cuda(pred, target, *, num_classes: int,
                              ignore_label: int = -1, per_image: bool = False):
-    """The kernel's first design (one shared atomic a pixel), int32 counts
-    converted to float32; counts no launches."""
+    """The shared form's first design (one shared atomic a pixel, one K x K
+    copy), int32 counts converted to float32; counts no launches."""
+    if num_classes > SHARED_MAX_CLASSES:
+        raise ValueError("confusion_matrix_v1: the first design holds one "
+                         f"K x K histogram in shared memory, K <= "
+                         f"{SHARED_MAX_CLASSES}; got {num_classes}")
     pred, target = _checked(pred, target, num_classes)
     b, n = pred.shape
     k = num_classes

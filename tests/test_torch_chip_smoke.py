@@ -303,21 +303,38 @@ def test_op_kind_splits_attention_from_other_matmuls(smoke, key, shapes,
     assert smoke.op_kind(key, shapes, {96}) == kind
 
 
+@pytest.mark.parametrize("k", [151, 847])
 @pytest.mark.parametrize("blocky", [False, True])
-def test_label_maps(smoke, blocky):
+def test_label_maps(smoke, blocky, k):
     """The confusion phase's labels: classes in [0, K) or -1 in both maps
     at once, pred = target on about half, about 5% ignored; blocky maps
     constant on 32 x 32 regions."""
-    pred, tgt = smoke.label_maps((2, 96, 80), 151, blocky, "cpu", 0)
+    pred, tgt = smoke.label_maps((2, 96, 80), k, blocky, "cpu", 0)
     assert pred.dtype == tgt.dtype == torch.int64
     assert torch.equal(pred == -1, tgt == -1)
-    assert int(tgt.min()) == -1 and int(tgt.max()) < 151
+    assert int(tgt.min()) == -1 and int(tgt.max()) < k
+    assert int(pred.max()) < k
     assert 0.3 < float((pred == tgt).float().mean()) < 0.7
     assert 0.0 < float((tgt == -1).float().mean()) < 0.2
     regions = tgt.reshape(2, 3, 32, 80)[:, :, :, :64].reshape(
         2, 3, 32, 2, 32).permute(0, 1, 3, 2, 4).reshape(12, -1)
     same = (regions == regions[:, :1]).all(1)
     assert bool(same.all()) == blocky
+
+
+def test_confusion_cases(smoke):
+    """The confusion phase covers both forms of the kernel: K = 21 and 151
+    (shared), 239 (the global form's first K) up to ADE20K-full's 847; the
+    first design, one K x K histogram in shared memory, runs only where
+    K <= 238."""
+    from robseg_torch.kernels import confusion as cf
+    ks = [k for k, _ in smoke.CONFUSION_CASES]
+    assert ks[:2] == [smoke.N_CLS, smoke.N_ADE] and {239, 847} <= set(ks)
+    assert len(set(ks)) == len(ks)
+    for k, with_v1 in smoke.CONFUSION_CASES:
+        assert with_v1 == (k <= cf.SHARED_MAX_CLASSES)
+        assert cf.plan(k, 1, 16 * 512 * 512, 132)["form"] == (
+            "shared" if with_v1 else "global")
 
 
 def test_fixture_ade_is_an_ade20k_val_tree(smoke, tmp_path):

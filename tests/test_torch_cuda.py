@@ -10,8 +10,8 @@ Tolerances: the block kernels round matmul operands to bf16 (as the TPU
 kernel does), the plain version runs float32 without TF32, so the forward
 is held to atol = rtol = 2e-2 and the input gradient to a max error of
 2e-2 relative to its largest entry (the bounds of tests/test_kernels.py).
-The APGD step and the confusion histogram (its redesign and its first
-design) are held to exact equality.
+The APGD step and the confusion histogram (both forms, shared and global,
+and the shared form's first design) are held to exact equality.
 
 The bf16 I/O forms of the block and FPN kernels against their float32
 forms on the upcast inputs, the result rounded once to bf16: bit for bit
@@ -36,6 +36,7 @@ import pytest
 import torch
 
 from robseg_torch import kernels
+from robseg_torch.kernels import confusion as cf
 from robseg_torch.kernels import convnext_block as cb
 from robseg_torch.kernels import convnext_mlp as cm
 from robseg_torch.kernels import fpn_conv as fc
@@ -211,6 +212,39 @@ def test_confusion_shapes_exact(dev, k, shape, blocky):
                                       num_classes=k),
         kernels.confusion_matrix_plain(off[1][None], off[0][None],
                                        num_classes=k))
+
+
+# the two forms' boundary (238: the shared form's largest K; 239: the
+# global form), 300 and ADE20K-full's 847 at the SEA batch, random and
+# blocky labels, 847 at the VOC crop's odd rows, and 300 at 64 x 512^2 =
+# 2^24 pixels (int32 path); each also on a view whose rows start off the
+# 16-byte grid
+@pytest.mark.parametrize("k,shape,blocky", [
+    (238, (16, 512, 512), False), (239, (16, 512, 512), False),
+    (239, (16, 512, 512), True),
+    (300, (16, 512, 512), False), (300, (16, 512, 512), True),
+    (847, (16, 512, 512), False), (847, (16, 512, 512), True),
+    (847, (3, 473, 473), True), (300, (64, 512, 512), True)])
+def test_confusion_any_classes_exact(dev, k, shape, blocky):
+    launch = cf.plan(k, shape[0], shape[1] * shape[2], 132)
+    assert launch["form"] == ("shared" if k <= 238 else "global")
+    rng = np.random.default_rng(k)
+    t = blocky_labels(rng, shape, k) if blocky else rng.integers(0, k, shape)
+    p = np.where(rng.random(shape) < 0.5, t,
+                 blocky_labels(rng, shape, k) if blocky
+                 else rng.integers(0, k, shape))
+    t = torch.tensor(t, device=dev)
+    p = torch.tensor(p, device=dev)
+    t[torch.rand(shape, device=dev) < 0.05] = -1
+    p[torch.rand(shape, device=dev) < 0.02] = k + 2
+    for per_image in (False, True):
+        kw = dict(num_classes=k, per_image=per_image)
+        want = kernels.confusion_matrix_plain(p, t, **kw)
+        assert torch.equal(kernels.confusion_matrix_cuda(p, t, **kw), want)
+        off = (t.flatten()[1:].view(1, -1), p.flatten()[1:].view(1, -1))
+        assert torch.equal(
+            kernels.confusion_matrix_cuda(off[1], off[0], **kw),
+            kernels.confusion_matrix_plain(off[1], off[0], **kw))
 
 
 # the kernel's edges: C = 96 (a channel tail against 64-channel K-steps),
