@@ -22,7 +22,9 @@ products are float32 and the tolerances below mean what they say.
 Phases (any failure raises, so the process exits non-zero and prints no
 result line):
   1. build the CUDA kernels from robseg_torch/csrc (one nvcc per source,
-     sm_90a);
+     sm_90a) by a world of 2 ranks (NCCL, a card each, or gloo sharing
+     one card) that start with the empty ``_build/`` and compile at once,
+     each launching the confusion kernel after;
   2. (TF32 off) each kernel against its plain PyTorch version at the
      shapes its path
      gives it (batch 16, 512^2; plus a ragged 119^2 case, and for the
@@ -206,6 +208,24 @@ result line):
      DEVICE_AUG: true at batch 8 for 4 iterations (an eval, a checkpoint)
      and --resume to 5; counted from zero, the block pair and the
      confusion kernel must have launched.
+  D. data parallelism (``robseg_torch/parallel``), counted from zero in
+     every rank: 10a's train step (fused attack, global batch 32 at
+     473^2) on 2 ranks (and 4) over NCCL with a card each or, with one
+     card, 2 ranks sharing it over gloo; 2 warm-up and 2 timed steps,
+     s/step (the slowest rank's; world 1's is 10a's), train images/s,
+     peak memory per rank, an eval step, the gradient all-reduce timed
+     alone (host clock between syncs, median of 3). Held against one-rank
+     steps in a world of one over NCCL (this process): each rank's first
+     loss on its shard within 1e-4 of a one-rank step on that shard with
+     that rank's draws, the mean first loss within 1e-2 of 10a's; every
+     parameter moved, the replicas identical. Then the ``--shard`` SEA
+     CLI under torchrun with the largest world's ranks on the VOC
+     fixture: its JSON within 1e-3 of phase 5's unsharded run, every
+     image's aAcc and intersection/union counts in its ``argmax-logs``
+     equal to those of its gathered predictions and labels (each row its
+     image's), every adversarial batch inside its eps ball; the block pair,
+     the APGD-step and the confusion kernels must have launched
+     (``launches_data_parallel_path`` in the kernels line).
 Each phase prints its seconds. Then one JSON line of per-kernel results,
 and the last line
 ``{"ok": true, "device": {...}}``.
@@ -1465,32 +1485,45 @@ def fixture_ade(tmp: str) -> str:
     return root
 
 
+def cli_save_dir(tmp: str, cfg_name: str = "rig_voc_demo.yaml",
+                 precision: str = "default", label: str = "") -> str:
+    """The SAVE_DIR of ``phase_cli``'s run with these arguments."""
+    return os.path.join(tmp, f"out_{os.path.splitext(cfg_name)[0]}_"
+                             f"{precision}{label}")
+
+
 def phase_cli(tmp: str, precision: str = "default",
               cfg_name: str = "rig_voc_demo.yaml", fixture=fixture_voc,
-              eps=(8,), n_iter: int = 10, ckpt=None) -> dict:
+              eps=(8,), n_iter: int = 10, ckpt=None, launch=(), flags=(),
+              env=None, label: str = "") -> tuple:
     """The SEA CLI (``python -m robseg_torch.infer``) on a fixture tree
     with a config from configs/ (its ROOT and SAVE_DIR pointed into
     ``tmp``), one batch, every eps of ``eps``, on the weights of ``ckpt``
     (random init without): one finite JSON a eps whose worst case is at
     most each loss's mIoU, and every adversarial batch inside its eps
-    ball. Returns the kernel launch counts it printed."""
+    ball. ``launch``: the launcher's arguments between the interpreter and
+    ``-m`` (torchrun's, for ``--shard``); ``flags``: more CLI flags;
+    ``env``: more environment. Returns the kernel launch counts it
+    printed and the JSONs."""
     import yaml
     root = fixture(tmp)
     with open(os.path.join(REPO, "configs", cfg_name)) as f:
         cfg = yaml.safe_load(f)
     cfg["DATASET"]["ROOT"] = root
-    tag = f"{os.path.splitext(os.path.basename(cfg_name))[0]}_{precision}"
-    cfg["SAVE_DIR"] = os.path.join(tmp, f"out_{tag}")
-    cfg_path = os.path.join(tmp, f"cfg_{tag}.yaml")
+    cfg["SAVE_DIR"] = cli_save_dir(tmp, cfg_name, precision, label)
+    cfg_path = os.path.join(tmp, f"cfg_{os.path.basename(cfg['SAVE_DIR'])}"
+                            ".yaml")
     with open(cfg_path, "w") as f:
         yaml.safe_dump(cfg, f)
     t0 = time.time()
-    p = subprocess.run([sys.executable, "-m", "robseg_torch.infer", "--cfg",
-                        cfg_path, "--eps", ",".join(f"{e:g}" for e in eps),
+    p = subprocess.run([sys.executable, *launch, "-m", "robseg_torch.infer",
+                        "--cfg", cfg_path,
+                        "--eps", ",".join(f"{e:g}" for e in eps),
                         "--n_iter", str(n_iter), "--n_batches", "1",
-                        "--precision", precision]
+                        "--precision", precision, *flags]
                        + (["--ckpt", ckpt] if ckpt else []),
-                       cwd=REPO, capture_output=True, text=True)
+                       cwd=REPO, capture_output=True, text=True,
+                       env=None if env is None else {**os.environ, **env})
     if p.returncode != 0:
         raise RuntimeError(f"SEA CLI exited {p.returncode}:\n"
                            f"{p.stdout[-4000:]}\n{p.stderr[-4000:]}")
@@ -1535,7 +1568,8 @@ def phase_cli(tmp: str, precision: str = "default",
     counts = json.loads(m.group(1))
     if ckpt and "evaluating random init" in out:
         raise AssertionError(f"SEA CLI did not load {ckpt}")
-    print(f"SEA CLI {cfg_name} --precision {precision} (8 fixture images, "
+    print(f"SEA CLI {cfg_name} --precision {precision} "
+          + "".join(f"{a} " for a in (*launch, *flags)) + "(8 fixture images, "
           f"one batch, n_iter {n_iter}, eps {list(eps)}/255) in "
           f"{time.time() - t0:.1f} s: " + "; ".join(
               f"eps {e:g}: clean {r['clean']}, worst_Acc {r['worst_Acc']:.4f}"
@@ -1543,7 +1577,7 @@ def phase_cli(tmp: str, precision: str = "default",
               f"{r['loss-wise_miou']}" for e, r in zip(eps, results))
           + f"; max Linf pert {max(float(c[0]) for c in checks):.5f}; "
           f"launches {counts}", flush=True)
-    return counts
+    return counts, results
 
 
 def phase_bench_fused(modes=("rs", "recompute_bf16", "head"),
@@ -1910,17 +1944,21 @@ def train_inputs(dev, b, hw, k, seed=5):
     return x, y
 
 
-def upernet_trainer(dev, fused_attack: bool, attack: str = "pgd"):
+def upernet_trainer(dev, fused_attack: bool, attack: str = "pgd",
+                    group=None):
     """The CLI's UperNet-ConvNeXt-T_CVST trainer (plain module, seeded
     random init, 21 classes): AdamW lr 1e-4, wd 0.05, warmuppolylr (2
     warm-up steps of 100), PGD-5 (or APGD-5) at eps 4/255, alpha 1e-2;
     the attack through the block kernels' twin (on the meta device: it
-    takes this step's parameters) or through the plain module."""
+    takes this step's parameters) or through the plain module;
+    data-parallel over ``group`` (rank 0's weights, as the CLI)."""
     from robseg_torch.models import build_model as build
+    from robseg_torch.parallel import replicate
     from robseg_torch.train import (AttackConfig, Trainer, get_scheduler,
                                     make_optimizer)
     torch.manual_seed(0)
     module = build(*UPERNET, N_CLS, fused=False).to(dev)
+    replicate(module, group)
     twin = None
     if fused_attack:
         with torch.device("meta"):
@@ -1930,7 +1968,8 @@ def upernet_trainer(dev, fused_attack: bool, attack: str = "pgd"):
     return Trainer(module, UPERNET[0], opt,
                    AttackConfig(name=attack, eps=4 / 255, n_iters=5),
                    twin=twin,
-                   generator=torch.Generator(device=dev).manual_seed(0))
+                   generator=torch.Generator(device=dev).manual_seed(0),
+                   group=group)
 
 
 def time_train_steps(trainer, x, y, warm: int, timed_steps: int):
@@ -2194,8 +2233,8 @@ def phase_train_cli(tmp: str):
           f"included), losses {losses}, evals (mIoU, aAcc) {evals}; resume "
           f"to 14 in {time.time() - t1:.1f} s; checkpoints {ckpts}",
           flush=True)
-    sea = phase_cli(tmp, "default", "pascalvoc_convnext.yaml",
-                    fixture_voc_train, eps=(4,), n_iter=3, ckpt=best)
+    sea, _ = phase_cli(tmp, "default", "pascalvoc_convnext.yaml",
+                       fixture_voc_train, eps=(4,), n_iter=3, ckpt=best)
     return counts, sea
 
 
@@ -3028,6 +3067,358 @@ def phases_engine(dev, smi: str) -> dict:
             "ade-train": ade_counts}
 
 
+# the data-parallel path (phase D): the train ranks run the block pair and
+# the confusion kernel (their eval step), the --shard SEA CLI's ranks the
+# block pair, the APGD-step and the confusion kernels
+DP_PATH = ("convnext_block_fwd", "convnext_block_dx", "apgd_linf_step",
+           "confusion_matrix")
+DP_TIMED = 2
+# each rank's first loss on its shard (before the mean over the ranks)
+# against a one-rank step on that shard with that rank's draws: the same
+# images, weights and draws at the same per-rank batch
+DP_SHARD_LOSS_RTOL = 1e-4
+# the mean first loss against 10a's one-card step at the whole batch: each
+# rank normalises its BatchNorms over its own images and draws its own
+# DropPath masks and random start (9.6e-4 measured on 2 ranks over gloo)
+DP_FIRST_LOSS_RTOL = 1e-2
+# the --shard SEA CLI's metrics against the unsharded one's: another
+# per-rank batch, so other cuDNN kernels under TF32 (measured within
+# 1.25e-04 on 2 ranks over gloo, 1.51e-05 on 4 over NCCL). Its per-image
+# results are held to their own predictions and labels (each gathered row
+# is its image's), not to the unsharded run's: the attack's sign steps
+# carry those rounding differences into other adversarial images, whose
+# union counts differ by up to 14% of an image's pixels
+DP_SEA_ATOL = 1e-3
+
+
+def dp_worlds(n_cards: int) -> list:
+    """(ranks, backend) of phase D's worlds: one rank over NCCL, then 2
+    ranks (and 4) over NCCL, one card each, or, with one card, 2 ranks
+    sharing it over gloo."""
+    worlds = [(1, "nccl")]
+    worlds += [(n, "nccl") for n in (2, 4) if n <= n_cards]
+    if n_cards < 2:
+        worlds.append((2, "gloo"))
+    return worlds
+
+
+def record_local_loss(trainer) -> list:
+    """Wrap ``trainer.loss_fn``: each step's loss on this rank's shard,
+    before the mean over the ranks, is appended to the list returned."""
+    local, loss_fn = [], trainer.loss_fn
+
+    def recorded(*args):
+        loss = loss_fn(*args)
+        local.append(loss.detach().clone())
+        return loss
+    trainer.loss_fn = recorded
+    return local
+
+
+def dp_reference_rank(group, sizes) -> dict:
+    """Phase D's one-rank reference, in a world of one (this process,
+    NCCL): for each rank r of a world of each size of ``sizes``, a fresh
+    trainer's first step on r's shard of the global batch with r's draws
+    (the trainer seeds its generator from the seed, the step and
+    ``group.rank``). Returns those first losses by size."""
+    import dataclasses
+    dev = group.device
+    x, y = train_inputs(dev, TRAIN_BATCH, TRAIN_HW, N_CLS)
+    out = {}
+    for size in sizes:
+        per = TRAIN_BATCH // size
+        out[size] = []
+        for r in range(size):
+            trainer = upernet_trainer(dev, True,
+                                      group=dataclasses.replace(group,
+                                                                rank=r))
+            rows = slice(r * per, (r + 1) * per)
+            out[size].append(float(trainer.train_step(x[rows], y[rows])))
+            del trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def dp_train_rank(group, timed_steps: int) -> dict:
+    """A rank of phase D's train step: 10a's step (fused attack) on this
+    rank's shard of the global batch of 32 (every rank draws the whole
+    batch from the seed and slices it), 2 warm-up and ``timed_steps``
+    timed steps, then an eval step on its shard of the first 8 images.
+    Returns s/step, peak GiB, the losses, the parameters that did not
+    move, a checksum of the parameters and the launch counts."""
+    from robseg_torch import kernels
+    from robseg_torch.infer import set_numerics
+    from robseg_torch.parallel import all_mean_, shard_batch
+    set_numerics()
+    dev = group.device
+    x, y = train_inputs(dev, TRAIN_BATCH, TRAIN_HW, N_CLS)
+    x, y = shard_batch(x, group), shard_batch(y, group)
+    trainer = upernet_trainer(dev, True, group=group)
+    local = record_local_loss(trainer)
+    m = trainer.module
+    p0 = {n: p.detach().clone() for n, p in m.named_parameters()}
+    kernels.reset_launch_counts()
+    dt, peak, losses, timer = time_train_steps(trainer, x, y, 2, timed_steps)
+    hist = trainer.eval_step(x[:8 // group.size], y[:8 // group.size],
+                             torch.zeros((N_CLS, N_CLS), device=dev))
+    counts = kernels.launch_counts()
+    # the step's one collective alone: the flat mean of the gradients
+    grads = [p.grad for p in m.parameters() if p.grad is not None]
+    reduce_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        all_mean_(grads, group)
+        torch.cuda.synchronize()
+        reduce_ms.append((time.perf_counter() - t0) * 1e3)
+    if int(hist.sum()) != 8 * TRAIN_HW * TRAIN_HW:
+        raise AssertionError("data-parallel eval step histogram does not "
+                             "count every pixel of the 8 images")
+    with torch.no_grad():
+        digest = [float(p.double().sum()) for p in m.parameters()]
+    return {"dt": dt, "peak": peak, "losses": losses, "counts": counts,
+            "local": float(local[0]),
+            "still": [n for n, p in m.named_parameters()
+                      if torch.equal(p.detach(), p0[n])],
+            "digest": digest, "timer": timer.summary(),
+            "card": f"cuda:{dev.index}", "reduce_ms": sorted(reduce_ms)[1],
+            "reduce_mb": sum(g.numel() * g.element_size()
+                             for g in grads) / 2 ** 20}
+
+
+def build_rank(group) -> tuple:
+    """A rank of phase 1: the kernel library built into the checkout's
+    ``_build/`` (every rank of the world at once, each in a private
+    directory, then a rename), then one confusion-kernel launch on the
+    rank's card, bit for bit against the CPU. Returns the library's path,
+    whether this rank found it missing, and the check."""
+    from robseg_torch import kernels
+    from robseg_torch.kernels import _build
+    from robseg_torch.ops.metrics import confusion_matrix
+    fresh = not os.path.exists(_build.library_path())
+    path = _build.build()
+    g = torch.Generator(device=group.device).manual_seed(group.rank)
+    y = torch.randint(-1, N_CLS, (2, 64, 64), device=group.device,
+                      generator=g)
+    p = torch.randint(0, N_CLS, (2, 64, 64), device=group.device,
+                      generator=g)
+    got = confusion_matrix(p, y, num_classes=N_CLS)
+    want = confusion_matrix(p.cpu(), y.cpu(), num_classes=N_CLS)
+    return (path, fresh, kernels.launch_counts()["confusion_matrix"] == 1
+            and torch.equal(got.cpu(), want))
+
+
+def phase_build() -> str:
+    """1: the kernels built by a world of 2 ranks (``dp_worlds``' second
+    world: NCCL with a card each, or gloo sharing one card) that start
+    with the checkout's empty ``_build/`` and compile at once; each rank
+    then launches the confusion kernel. This process then loads the one
+    library. Returns its path."""
+    from robseg_torch.kernels import _build
+    from robseg_torch.parallel import spawn_world
+    size, backend = dp_worlds(torch.cuda.device_count())[1]
+    t0 = time.time()
+    ranks = spawn_world(build_rank, size, device_type="cuda",
+                        backend=backend, timeout_s=600)
+    paths = {r[0] for r in ranks}
+    if len(paths) != 1 or not all(r[2] for r in ranks):
+        raise AssertionError(f"build world: {ranks}")
+    path = _build.build()
+    if path not in paths:
+        raise AssertionError(f"build world made {paths}, not {path}")
+    print(f"build: {time.time() - t0:.1f} s by {size} ranks ({backend}) at "
+          f"once, {sum(r[1] for r in ranks)} of them finding no library "
+          f"({os.path.relpath(path, REPO)}); each rank's confusion kernel "
+          f"equal to the CPU's", flush=True)
+    return path
+
+
+def in_process_world(fn, *args) -> list:
+    """``[fn(group)]`` on this process as a world of one rank over NCCL
+    (no process to start)."""
+    import torch.distributed as dist
+    from robseg_torch.parallel import setup
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group(
+            "nccl", init_method="file://" + os.path.join(d, "rendezvous"),
+            rank=0, world_size=1,
+            device_id=torch.device("cuda", torch.cuda.current_device()))
+        try:
+            return [fn(setup("cuda"), *args)]
+        finally:
+            dist.destroy_process_group()
+
+
+def sea_cache(save_dir: str) -> dict:
+    """The per-image results of a SEA CLI run, from its ``argmax-logs``
+    files, by file: each image's aAcc (``accs``) and intersection and
+    union counts as fractions of its pixels (``ints``, ``unis``);
+    ``own``: their largest distance from the same numbers recomputed from
+    the file's predictions and labels (0 when every row of the
+    predictions is its image's); ``rolled``: the mean aAcc of each
+    image's predictions against the next image's labels (what a row
+    gathered into the wrong place reads)."""
+    d = os.path.join(save_dir, "argmax-logs")
+    out = {}
+    for name in sorted(os.listdir(d)):
+        with np.load(os.path.join(d, name)) as f:
+            got = {k: f[k] for k in ("accs", "ints", "unis")}
+            preds = f["preds"].astype(np.int64)
+            tgts = f["targets"].astype(np.int64)
+        n, k = got["ints"].shape
+        px = float(preds[0].size)
+        valid = tgts != -1
+
+        def acc(p):
+            return (((p == tgts) & valid).reshape(n, -1).sum(1)
+                    / np.maximum(valid.reshape(n, -1).sum(1), 1))
+        ints = np.stack([np.bincount(t[(p == t) & v], minlength=k)
+                         for p, t, v in zip(preds, tgts, valid)])
+        unis = np.stack([np.bincount(p[v], minlength=k)
+                         + np.bincount(t[v], minlength=k)
+                         for p, t, v in zip(preds, tgts, valid)]) - ints
+        own = max(float(np.abs(acc(preds) - got["accs"]).max()),
+                  float(np.abs(ints - got["ints"]).max()) / px,
+                  float(np.abs(unis - got["unis"]).max()) / px)
+        out[name] = {"accs": got["accs"], "ints": got["ints"] / px,
+                     "unis": got["unis"] / px, "own": own,
+                     "rolled": float(acc(np.roll(preds, 1, 0)).mean())}
+    return out
+
+
+def phase_data_parallel(tmp: str, smi: str, sea_ref: tuple,
+                        one_card: tuple) -> dict:
+    """D: the data-parallel path. The train step of 10a at a global batch
+    of 32 on each world of ``dp_worlds`` after the first
+    (``parallel.spawn_world``), each held against one-rank steps (a world
+    of one over NCCL in this process, ``dp_reference_rank``): each rank's
+    first loss on its shard within ``DP_SHARD_LOSS_RTOL`` of a one-rank
+    step on that shard with that rank's draws; the mean first loss within
+    ``DP_FIRST_LOSS_RTOL`` of 10a's one-card step (``one_card``: its
+    s/step, peak and losses, world 1's numbers); every parameter moved,
+    the replicas identical; s/step, images/s and peak memory per rank.
+    Then the ``--shard`` SEA CLI under torchrun on the VOC fixture with
+    the largest world's ranks, against phase 5's unsharded CLI
+    (``sea_ref``: its JSONs and ``sea_cache``): every metric of the JSON
+    within ``DP_SEA_ATOL``, as many images in each ``argmax-logs`` file,
+    each image's aAcc and intersection/union counts equal to those of its
+    own gathered predictions and labels, the per-image differences from
+    the unsharded run printed; every adversarial batch inside its eps ball
+    (``phase_cli``). Returns the path's
+    launches, summed over every rank of every world."""
+    from robseg_torch.parallel import spawn_world
+    counts = {}
+
+    def add(c):
+        for k, n in c.items():
+            counts[k] = counts.get(k, 0) + n
+    worlds = dp_worlds(torch.cuda.device_count())[1:]
+    t0 = time.time()
+    refs = in_process_world(dp_reference_rank, [n for n, _ in worlds])[0]
+    dt1, peak1, losses1 = one_card
+    print(f"data-parallel train step, world 1: 10a's one-card step, "
+          f"{dt1:.4f} s/step, {TRAIN_BATCH / dt1:.2f} train images/s, peak "
+          f"{peak1:.2f} GiB; one-rank reference steps on each rank's shard "
+          f"(NCCL world of one, {time.time() - t0:.1f} s): first losses "
+          f"{refs} [{smi}]", flush=True)
+    for size, backend in worlds:
+        t0 = time.time()
+        ranks = spawn_world(dp_train_rank, size, (DP_TIMED,),
+                            device_type="cuda", backend=backend,
+                            timeout_s=400)
+        for r in ranks:
+            add(r["counts"])
+            if r["still"]:
+                raise AssertionError(f"world {size} ({backend}): parameters "
+                                     f"that did not move {r['still'][:5]}")
+        if any(r["digest"] != ranks[0]["digest"] for r in ranks):
+            raise AssertionError(f"world {size} ({backend}): the replicas "
+                                 "differ after the steps")
+        local = [r["local"] for r in ranks]
+        shard_rel = [abs(a - b) / abs(b) for a, b in zip(local, refs[size])]
+        # what a rank on another rank's shard would read: the check's reach
+        other_rel = min(abs(a - b) / abs(b) for i, a in enumerate(local)
+                        for j, b in enumerate(refs[size]) if i != j)
+        if max(shard_rel) > DP_SHARD_LOSS_RTOL:
+            raise AssertionError(f"world {size} ({backend}): first losses "
+                                 f"by rank {local} against one-rank steps "
+                                 f"on their shards {refs[size]}")
+        dt = max(r["dt"] for r in ranks)
+        losses = ranks[0]["losses"]
+        mean_rel = abs(losses[0] - sum(local) / size) / abs(losses[0])
+        rel = abs(losses[0] - losses1[0]) / abs(losses1[0])
+        if rel > DP_FIRST_LOSS_RTOL or mean_rel > 1e-6:
+            raise AssertionError(f"world {size} ({backend}): first loss "
+                                 f"{losses[0]} (ranks' {local}) against the "
+                                 f"one-card step's {losses1[0]}")
+        print(f"data-parallel train step, world {size} ({backend}, cards "
+              f"{sorted({r['card'] for r in ranks})}), UperNet-ConvNeXt-"
+              f"T_CVST, global batch {TRAIN_BATCH} ({TRAIN_BATCH // size} a "
+              f"rank), {TRAIN_HW}^2, AdamW, PGD-5 through the block kernels: "
+              f"{dt:.4f} s/step, {TRAIN_BATCH / dt:.2f} train images/s "
+              f"({DP_TIMED} timed steps after 2; slowest rank; StepTimer by "
+              f"rank {[r['timer'] for r in ranks]}); peak by rank "
+              f"{[round(r['peak'], 2) for r in ranks]} GiB; the gradient "
+              f"all-reduce ({ranks[0]['reduce_mb']:.1f} MiB float32) alone "
+              f"{max(r['reduce_ms'] for r in ranks):.1f} ms (median of 3, "
+              f"slowest rank); losses {[round(v, 4) for v in losses]}; first "
+              f"losses by rank {local}, against the one-rank steps on their "
+              f"shards {max(shard_rel):.2e} (on another rank's shard "
+              f"{other_rel:.2e}); mean first loss {rel:.2e} from the "
+              f"one-card step's; every parameter moved, replicas identical; "
+              f"{time.time() - t0:.1f} s with the ranks' start [{smi}]",
+              flush=True)
+    size, backend = worlds[-1]
+    launch = ("-m", "torch.distributed.run", "--standalone",
+              "--nproc_per_node", str(size))
+    label = f"_shard{size}"
+    cli_counts, results = phase_cli(
+        tmp, launch=launch, flags=("--shard",), label=label,
+        env={"ROBSEG_DIST_BACKEND": backend})
+    add(cli_counts)
+    sea_json, want_c = sea_ref
+    diffs = []
+    for got, want in zip(results, sea_json):
+        diffs += [abs(got[k] - want[k]) for k in ("worst_Acc", "final_miou")]
+        diffs += [abs(g - w) for g, w in zip(got["worst_Acc_indiv"],
+                                             want["worst_Acc_indiv"])]
+        diffs += [abs(g[k] - w[k]) for g, w in zip(
+            got["loss-wise_stats"] + [got["clean"]],
+            want["loss-wise_stats"] + [want["clean"]]) for k in w]
+    got_c = sea_cache(cli_save_dir(tmp, label=label))
+    if got_c.keys() != want_c.keys() or not got_c:
+        raise AssertionError(f"--shard SEA argmax-logs {sorted(got_c)} "
+                             f"against the unsharded {sorted(want_c)}")
+    per_image = {k: 0.0 for k in ("accs", "ints", "unis")}
+    for name, want in want_c.items():
+        got = got_c[name]
+        if got["accs"].shape != want["accs"].shape or got["own"] > 1e-6:
+            raise AssertionError(
+                f"--shard SEA {name}: {got['accs'].shape[0]} images "
+                f"against {want['accs'].shape[0]}; its rows {got['own']} "
+                "from their own predictions and labels")
+        for k in per_image:
+            per_image[k] = max(per_image[k],
+                               float(np.abs(got[k] - want[k]).max()))
+    if max(diffs) > DP_SEA_ATOL:
+        raise AssertionError(f"--shard SEA JSON {results} against the "
+                             f"unsharded {sea_json}")
+    n_img = len(next(iter(want_c.values()))["accs"])
+    print(f"--shard SEA CLI on {size} ranks ({backend}) against the "
+          f"unsharded CLI (phase 5): largest metric difference "
+          f"{max(diffs):.2e}; per image ({n_img} images x {len(want_c)} "
+          f"losses), each gathered row against its own predictions and "
+          f"labels {max(g['own'] for g in got_c.values()):.2e} (a row in "
+          f"the wrong place would read an aAcc of "
+          f"{min(g['rolled'] for g in got_c.values()):.4f}, its own "
+          f"{max(float(g['accs'].max()) for g in got_c.values()):.4f}); "
+          f"largest per-image difference from the unsharded run "
+          + ", ".join(f"{k} {v:.2e}" for k, v in per_image.items())
+          + f"; worst_Acc_indiv {results[0]['worst_Acc_indiv']} / "
+          f"{sea_json[0]['worst_Acc_indiv']} [{smi}]", flush=True)
+    return counts
+
+
 @contextlib.contextmanager
 def timed(name: str):
     """Print a phase's wall seconds when it ends."""
@@ -3039,7 +3430,7 @@ def timed(name: str):
 def phases_sea(dev, results) -> dict:
     """Phases 2-9p: the kernels against their plain versions, the models,
     and the SEA paths, each path's launches counted from zero. Returns the
-    counts by path."""
+    counts by path and the JSONs of phase 5's ``default`` SEA CLI."""
     from robseg_torch import kernels
     bundle = build_model(dev)
     weights = bundle.module.state_dict()
@@ -3089,8 +3480,11 @@ def phases_sea(dev, results) -> dict:
         with timed("5 SEA CLI"):
             for precision, counts in (("default", main_counts),
                                       ("bf16", bf16_counts)):
-                for name, n in phase_cli(tmp, precision).items():
+                cli_counts, cli_json = phase_cli(tmp, precision)
+                for name, n in cli_counts.items():
                     counts[name] += n
+                if precision == "default":  # phase D's reference
+                    sea_ref = cli_json, sea_cache(cli_save_dir(tmp))
         with timed("6 bench_fused"):
             for modes, flags, counts in (
                     (("rs", "recompute_bf16", "head"), (), fused_counts),
@@ -3112,13 +3506,13 @@ def phases_sea(dev, results) -> dict:
                     ("voc_pspnet.yaml", fixture_voc, "default"),
                     ("ade20k_segmenter.yaml", fixture_ade, "bf16")):
                 for name, n in phase_cli(tmp, precision, cfg_name, fixture,
-                                         eps=(4, 8)).items():
+                                         eps=(4, 8))[0].items():
                     families_counts[name] += n
     with timed("9p families profiles"):
         phase_family_profiles(dev)
     torch.cuda.empty_cache()
     return {"main": main_counts, "fused-variant": fused_counts,
-            "bf16": bf16_counts, "families": families_counts}
+            "bf16": bf16_counts, "families": families_counts}, sea_ref
 
 
 def phases_train(dev, smi: str):
@@ -3151,7 +3545,6 @@ def main():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
         sys.exit(2)
     from robseg_torch.infer import set_numerics
-    from robseg_torch.kernels import _build
 
     dev = torch.device("cuda")
     set_numerics()
@@ -3162,13 +3555,11 @@ def main():
           f"{torch.__version__}, CUDA {torch.version.cuda}", flush=True)
     print(smi, flush=True)
 
-    t0 = time.time()
-    path = _build.build()
-    print(f"build: {time.time() - t0:.1f} s ({os.path.relpath(path, REPO)})",
-          flush=True)
+    with timed("1 build"):
+        phase_build()
 
     results = {}
-    paths = phases_sea(dev, results)
+    paths, sea_ref = phases_sea(dev, results)
     train_counts, steps = phases_train(dev, smi)
     print(f"train-path launches: {train_counts}", flush=True)
     bf16_train = phases_bf16_train(dev, smi, steps)
@@ -3176,6 +3567,11 @@ def main():
     engine = phases_engine(dev, smi)
     for label, counts in engine.items():
         print(f"{label}-path launches: {counts}", flush=True)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp, timed("D data parallel"):
+        dp_counts = phase_data_parallel(tmp, smi, sea_ref,
+                                        steps["fused attack"])
+    print(f"data-parallel-path launches: {dp_counts}", flush=True)
     missing = [f"{k} (train path)" for k in TRAIN_PATH
                if train_counts[k] <= 0]
     missing += [f"{k} (bf16 train path)" for k in BF16_TRAIN_PATH
@@ -3184,6 +3580,8 @@ def main():
         ("norms", NORMS_PATH), ("msf", MSF_PATH),
         ("ade-train", ADE_TRAIN_PATH)) for k in need
         if engine[label][k] <= 0]
+    missing += [f"{k} (data-parallel path)" for k in DP_PATH
+                if dp_counts.get(k, 0) <= 0]
     for label, counts in paths.items():
         print(f"{label}-path launches: {counts}", flush=True)
     launches = {name: paths["main" if name in MAIN_PATH else
@@ -3209,6 +3607,8 @@ def main():
             for label, need in (("norms", NORMS_PATH), ("msf", MSF_PATH),
                                 ("ade-train", ADE_TRAIN_PATH))
             if name in need},
+         **({"launches_data_parallel_path": dp_counts[name]}
+            if name in DP_PATH else {}),
          **{k: results[name][k] for k in ("max_abs_err", "ms", "plain_ms",
                                           "bound_ms", "bound_by",
                                           "library_ms", "stages", "modes",

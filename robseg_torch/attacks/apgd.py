@@ -10,7 +10,11 @@ as tensor operations: the best points, the loss history, the oscillation
 check, the step halving and (L1) the sparsity controller (``:439-455``).
 The loop counters (``i``, ``counter3``, ``k``) depend on nothing but
 ``n_iter``, so they are Python ints; the one host sync per iteration is
-the early-stop test ``acc.sum() > 0``.
+the early-stop test ``acc.sum() > 0``. Under data parallelism
+(``group``, ``make_sharded_apgd``'s ``psum``-ed early stop, ``:170``)
+each rank attacks its shard of the batch and that sum is all-reduced
+before the sync, so every rank stops at the iteration the whole batch
+stops at, and per-image results equal the one-process run's.
 
 Semantics notes (as in the JAX core):
   * best-point and step-size logic use the tracking loss (``ce-avg`` for
@@ -23,8 +27,8 @@ Semantics notes (as in the JAX core):
   * the random start is Linf only, and ``apgd_largereps`` projects
     between its phases in Linf only: both raise otherwise, as in JAX.
 
-Left out: the XLA/``shard_map`` machinery (``closure_to_args``,
-``make_sharded_apgd``).
+Left out: the XLA machinery (``closure_to_args``; the per-device
+program ``make_sharded_apgd`` compiles is the ``group`` argument here).
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ from robseg_torch.kernels.apgd_step import apgd_linf_step
 from robseg_torch.ops.losses import ATTACK_CRITERIA, pixel_to_img_loss
 from robseg_torch.ops.projections import (_l2_norm, project_l1_ball_box,
                                           project_l2)
+from robseg_torch.parallel import DataGroup, all_sum_, shard_batch
 
 
 class APGDResult(NamedTuple):
@@ -86,7 +91,8 @@ def apgd_attack(logits_fn: Callable, x: torch.Tensor, y: torch.Tensor, *,
                 generator: Optional[torch.Generator] = None,
                 x_init: Optional[torch.Tensor] = None,
                 y_target: Optional[torch.Tensor] = None,
-                n_iter_buf: Optional[int] = None) -> APGDResult:
+                n_iter_buf: Optional[int] = None,
+                group: Optional[DataGroup] = None) -> APGDResult:
     """One APGD run; parity ``robseg_tpu.attacks.apgd.apgd_attack``.
 
     ``x`` (B, 3, H, W) in [0, 1], ``y`` (B, H, W) int64. ``norm`` is
@@ -95,7 +101,8 @@ def apgd_attack(logits_fn: Callable, x: torch.Tensor, y: torch.Tensor, *,
     labels the attack loss reads (a targeted loss), while accuracy and
     the tracking loss read ``y``. ``is_train`` sets the L1 attack's first
     sparsity (0.05, else 0.2). ``n_iter_buf`` sizes the loss history
-    (defaults to ``n_iter``).
+    (defaults to ``n_iter``). ``group``: ``x`` and ``y`` are this rank's
+    shard of the batch, and the early stop is decided over all ranks.
     """
     if ignore_index != -1:
         raise ValueError("Only ignore_index = -1 is supported.")
@@ -110,13 +117,38 @@ def apgd_attack(logits_fn: Callable, x: torch.Tensor, y: torch.Tensor, *,
                           generator, y_target, norm=norm, use_rs=use_rs,
                           loss=loss, track_loss=track_loss,
                           early_stop=early_stop, is_train=is_train,
-                          ignore_index=ignore_index, n_iter_buf=n_iter_buf)
+                          ignore_index=ignore_index, n_iter_buf=n_iter_buf,
+                          group=group)
+
+
+def _random_start(x: torch.Tensor, eps: float, norm: str, generator,
+                  draw_rows: Optional[int] = None) -> torch.Tensor:
+    """The uniform Linf random start in the ``eps`` ball, drawn from
+    ``generator`` for the first ``draw_rows`` rows of ``x`` (all of them
+    by default); the rows after those start at ``x``."""
+    if norm != "Linf":
+        raise NotImplementedError("random start only for Linf (parity)")
+    n = x.shape[0] if draw_rows is None else draw_rows
+    t = 2.0 * torch.rand((n,) + x.shape[1:], generator=generator,
+                         device=x.device, dtype=x.dtype) - 1.0
+    if n < x.shape[0]:
+        t = torch.cat([t, t.new_zeros((x.shape[0] - n,) + x.shape[1:])])
+    return torch.clamp(x + eps * t, 0.0, 1.0)
+
+
+def _none_correct(acc: torch.Tensor, group: Optional[DataGroup]) -> bool:
+    """Every image of the batch at zero accuracy: the early stop. One host
+    sync; over all ranks' shards under ``group``."""
+    total = acc.sum()
+    all_sum_([total], group)
+    return total.item() == 0
 
 
 def _apgd_core(logits_fn, x, y, x_init, eps: float, ctrl: dict, weights,
                generator, y_target, *, norm: str, use_rs: bool, loss: str,
                track_loss: Optional[str], early_stop: bool, is_train: bool,
-               ignore_index: int, n_iter_buf: int) -> APGDResult:
+               ignore_index: int, n_iter_buf: int,
+               group: Optional[DataGroup] = None) -> APGDResult:
     bs = x.shape[0]
     ndims = x.ndim - 1
     n_fts = x.numel() // bs
@@ -130,11 +162,7 @@ def _apgd_core(logits_fn, x, y, x_init, eps: float, ctrl: dict, weights,
     if x_init is not None:
         x_adv = x_init
     elif use_rs:
-        if norm != "Linf":
-            raise NotImplementedError("random start only for Linf (parity)")
-        t = 2.0 * torch.rand(x.shape, generator=generator, device=x.device,
-                             dtype=x.dtype) - 1.0
-        x_adv = torch.clamp(x + eps * t, 0.0, 1.0)
+        x_adv = _random_start(x, eps, norm, generator)
     else:
         x_adv = x
     x_adv = torch.clamp(x_adv, 0.0, 1.0)
@@ -185,7 +213,7 @@ def _apgd_core(logits_fn, x, y, x_init, eps: float, ctrl: dict, weights,
     k = ctrl["k0"]
 
     i = 0
-    while i < n_iter and not (early_stop and acc.sum().item() == 0):
+    while i < n_iter and not (early_stop and _none_correct(acc, group)):
         a = 0.75 if i > 0 else 1.0
         if norm == "Linf":
             x_next = apgd_linf_step(x, x_adv, x_adv_old, grad, step_size,
@@ -283,22 +311,38 @@ def apgd_largereps(logits_fn: Callable, x: torch.Tensor, y: torch.Tensor, *,
                    early_stop: bool = False, track_loss: Optional[str] = None,
                    use_rs: bool = False, ignore_index: int = -1,
                    generator: Optional[torch.Generator] = None,
-                   x_init: Optional[torch.Tensor] = None):
+                   x_init: Optional[torch.Tensor] = None,
+                   group: Optional[DataGroup] = None,
+                   draw_rows: Optional[int] = None):
     """SEA per-loss attack: three warm-started phases at eps * (2, 1.5, 1)
-    of 30/30/40% of ``n_iter``. Returns ``(x_adv, None, acc)``."""
+    of 30/30/40% of ``n_iter``. Returns ``(x_adv, None, acc)``.
+
+    ``group`` (``_make_attack_fn``'s sharded branch, ``sea.py:124-160``):
+    ``x``, ``y`` and ``x_init`` are the whole (padded) batch; the random
+    start is drawn over it, then every phase runs on this rank's rows, and
+    ``x_adv`` and ``acc`` are those rows'. ``draw_rows``: draw the random
+    start for the first ``draw_rows`` rows only (the batch the
+    one-process run attacks; the padding starts at ``x``)."""
     n_iters = [int(0.3 * n_iter), int(0.3 * n_iter)]
     n_iters.append(n_iter - sum(n_iters))
     epss = [2.0 * eps, 1.5 * eps, 1.0 * eps]
-    n_buf = max(n_iters)
-    acc = torch.ones((x.shape[0],), dtype=torch.float32, device=x.device)
-    for it, ep in zip(n_iters, epss):
-        if x_init is not None:
-            x_init = _project_back(x_init, x, norm, ep)
+    xs, ys = shard_batch(x, group), shard_batch(y, group)
+    if x_init is not None:
+        x_init = _project_back(shard_batch(x_init, group), xs, norm,
+                               epss[0])
+    elif use_rs:
+        x_init = shard_batch(_random_start(x, float(np.float32(epss[0])),
+                                           norm, generator, draw_rows),
+                             group)
+    acc = torch.ones((xs.shape[0],), dtype=torch.float32, device=x.device)
+    for i, (it, ep) in enumerate(zip(n_iters, epss)):
+        if i:
+            x_init = _project_back(x_init, xs, norm, ep)
         res = apgd_attack(
-            logits_fn, x, y, norm=norm, eps=ep, n_iter=it, use_rs=use_rs,
-            loss=loss, track_loss=track_loss, early_stop=early_stop,
-            ignore_index=ignore_index, weights=weights, generator=generator,
-            x_init=x_init, n_iter_buf=n_buf)
+            logits_fn, xs, ys, norm=norm, eps=ep, n_iter=it, loss=loss,
+            track_loss=track_loss, early_stop=early_stop,
+            ignore_index=ignore_index, weights=weights, x_init=x_init,
+            n_iter_buf=max(n_iters), group=group)
         acc = res.acc
         x_init = res.x_best_adv
     return x_init, None, acc

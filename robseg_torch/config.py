@@ -58,9 +58,10 @@ class TrainSettings:
     """Typed view over the TRAIN section with the reference's defaults; a
     copy of ``robseg_tpu/config.py:42-94`` (same keys, same defaults).
 
-    ``ddp`` is informational: the port trains on one card (the CLI logs a
-    note when it is false). ``eval_interval`` is dead in the reference
-    too. ``device_aug: true`` augments on the card
+    ``ddp`` is informational: under ``torchrun`` the port always runs
+    data-parallel over the ranks, as JAX runs over the mesh (the CLI logs
+    a note when it is false with more than one rank). ``eval_interval``
+    is dead in the reference too. ``device_aug: true`` augments on the card
     (``data/device_transforms.py``).
     """
     base_size: int = 512

@@ -2,11 +2,15 @@
 batches, in the port's layout: NCHW float32 images and int64 labels.
 
 Port of ``robseg_tpu/data/sampler.py`` (reference
-``semseg/datasets/distributed_sampler.py``) for one card:
-``ShardedEpochSampler`` keeps the shard arithmetic (one shard here) so the
-index stream equals the JAX package's; ``IterationBasedLoader`` yields
-exactly ``max_iters`` batches from ``start_iter`` on, the epoch seeding
-the shuffle (``np.random.default_rng(seed + epoch)``) and the dataset's
+``semseg/datasets/distributed_sampler.py``): ``ShardedEpochSampler`` deals
+each epoch's shuffle (``np.random.default_rng(seed + epoch)``, wrap-padded
+to a multiple of ``num_shards``) out to the shards, and with
+``num_hosts``/``host_id`` enumerates only this host's contiguous block of
+shards; under data parallelism a rank is a host that feeds one shard
+(``num_shards = num_hosts = world``, ``host_id = rank``), so its index sets
+are the JAX package's for the same (shards, hosts, host).
+``IterationBasedLoader`` yields exactly ``max_iters`` batches from
+``start_iter`` on, the epoch seeding the shuffle and the dataset's
 augmentation, the last partial batch of an epoch dropped.
 """
 
@@ -20,14 +24,23 @@ import numpy as np
 
 class ShardedEpochSampler:
     """Deterministic epoch-seeded shuffling, wrap-padded to a multiple of
-    ``num_shards``; shard s takes every num_shards-th index from s."""
+    ``num_shards``; shard s takes every num_shards-th index from s. Host
+    ``host_id`` of ``num_hosts`` feeds the contiguous block of shards
+    ``local_shards``: the hosts' index sets are disjoint and their union
+    is the one-host global batch."""
 
     def __init__(self, dataset_len: int, num_shards: int = 1, *,
-                 shuffle: bool = True, seed: int = 0):
+                 shuffle: bool = True, seed: int = 0, num_hosts: int = 1,
+                 host_id: int = 0):
+        if num_shards % num_hosts or not 0 <= host_id < num_hosts:
+            raise ValueError(f"{num_shards} shards over {num_hosts} hosts, "
+                             f"host {host_id}")
         self.dataset_len = dataset_len
         self.num_shards = num_shards
         self.shuffle = shuffle
         self.seed = seed
+        self.num_hosts = num_hosts
+        self.host_id = host_id
         self.num_samples = int(math.ceil(dataset_len * 1.0 / num_shards))
         self.total_size = self.num_samples * num_shards
 
@@ -42,12 +55,18 @@ class ShardedEpochSampler:
             indices = np.concatenate([indices, indices[:pad]])
         return indices[shard:self.total_size:self.num_shards]
 
+    @property
+    def local_shards(self) -> range:
+        """The contiguous block of shard ids this host feeds."""
+        per_host = self.num_shards // self.num_hosts
+        return range(self.host_id * per_host, (self.host_id + 1) * per_host)
+
     def global_batch_indices(self, epoch: int, batch_per_shard: int
                              ) -> Iterator[np.ndarray]:
-        """Each global batch's indices, shard 0's first; the last partial
-        batch is dropped."""
-        per_shard = [self.shard_indices(epoch, s)
-                     for s in range(self.num_shards)]
+        """This host's slice of each global batch's indices (with one host
+        the whole batch), its first shard's first; the last partial batch
+        is dropped."""
+        per_shard = [self.shard_indices(epoch, s) for s in self.local_shards]
         for b in range(self.num_samples // batch_per_shard):
             sl = slice(b * batch_per_shard, (b + 1) * batch_per_shard)
             yield np.concatenate([p[sl] for p in per_shard])
@@ -61,14 +80,18 @@ def _stack(items):
 
 class IterationBasedLoader:
     """``(images (B, 3, H, W), labels (B, H, W))`` numpy batches for
-    exactly ``max_iters`` iterations (one epoch when None)."""
+    exactly ``max_iters`` iterations (one epoch when None); ``batch_size``
+    images a shard, for this host's shards (see ``ShardedEpochSampler``)."""
 
     def __init__(self, dataset, *, batch_size: int,
                  max_iters: Optional[int] = None, shuffle: bool = True,
-                 seed: int = 0, start_iter: int = 0):
+                 seed: int = 0, start_iter: int = 0, num_shards: int = 1,
+                 num_hosts: int = 1, host_id: int = 0):
         self.dataset = dataset
-        self.sampler = ShardedEpochSampler(len(dataset), 1, shuffle=shuffle,
-                                           seed=seed)
+        self.sampler = ShardedEpochSampler(len(dataset), num_shards,
+                                           shuffle=shuffle, seed=seed,
+                                           num_hosts=num_hosts,
+                                           host_id=host_id)
         self.batch_size = batch_size
         self.max_iters = max_iters
         self.start_iter = start_iter

@@ -8,6 +8,15 @@ the same output files under ``SAVE_DIR`` (``worse_SEA_*.json``,
 
 Usage:
     python -m robseg_torch.infer --cfg configs/pascalvoc_convnext.yaml --eps 8
+    torchrun --nproc_per_node N -m robseg_torch.infer --cfg ... --shard
+
+``--shard`` under ``torchrun`` splits each SEA batch over the ranks, one
+process a card (``parallel/mesh.py``; the JAX CLI's ``--shard`` over its
+mesh, ``tools/infer.py:220-227``): per-image results equal the one-card
+run's, and only rank 0 logs and writes the output files. Without
+``torchrun``'s environment (or with ``WORLD_SIZE`` 1) ``--shard`` is the
+one-card run; under ``torchrun`` without ``--shard`` the CLI refuses to
+start, as every rank would run the whole evaluation.
 
 The config's ``DEVICE`` picks the device (``tpu``/``gpu``/``cuda`` -> the
 CUDA card, ``cpu`` -> the CPU). On CUDA the hand-written kernels always
@@ -18,7 +27,8 @@ refuses it with its block kernel. ``--no-adversarial --msf`` evaluates the
 clean model over scales (0.5, 0.75, 1.0, 1.25, 1.5) and their flips
 (``utils/sliding_window.py``). ``--wc_engine`` defaults to ``auto``, the
 C++ engine, as in the JAX CLI. On exit the CLI prints one ``kernel
-launches: {...}`` JSON line with each kernel's launch count.
+launches: {...}`` JSON line with each kernel's launch count (summed over
+the ranks).
 """
 
 from __future__ import annotations
@@ -39,6 +49,8 @@ from robseg_torch.convert import npz_state_dict
 from robseg_torch.data import get_segmentation_dataset, simple_eval_loader
 from robseg_torch.models import ModelBundle, build_model
 from robseg_torch.models.vit import resize_pos_embed
+from robseg_torch.parallel import (barrier, gather_objects, is_main,
+                                   replicate, setup, teardown)
 from robseg_torch.utils import Logger, class_balance_weights, fix_seeds
 from robseg_torch.utils.sliding_window import multi_scale_flip_logits
 
@@ -47,9 +59,6 @@ SEED = 225  # parity: tools/infer.py:25
 MSF_SCALES = (0.5, 0.75, 1.0, 1.25, 1.5)  # tools/infer.py:195
 # flags of the JAX CLI that have no meaning here, with the reason
 _REFUSED = {
-    "shard": "--shard shards the SEA batch over a TPU mesh (shard_map); "
-             "the port runs on one card and has no mesh (ROADMAP.md, "
-             "section 1 item 9)",
     "fused": "--fused turns the JAX package's Pallas block kernel on; "
              "under CUDA the port's kernels are always on, so there is "
              "nothing to turn on",
@@ -136,6 +145,11 @@ def parse_args(argv=None):
     parser.add_argument("--msf", action="store_true",
                         help="multi-scale + flip clean eval "
                              "(with --no-adversarial)")
+    parser.add_argument("--shard", action="store_true",
+                        help="under torchrun: split each batch over the "
+                             "ranks, one process a card (per-image results "
+                             "identical); without torchrun the one-card "
+                             "run")
     parser.add_argument("--ckpt", type=str, default=None,
                         help=".pth state_dict or JAX .npz params "
                              "(overrides EVAL.MODEL_PATH)")
@@ -161,6 +175,9 @@ def parse_args(argv=None):
             parser.error(why)
     if args.precision == "f32":
         parser.error(F32_REFUSED)
+    if not args.shard and int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        parser.error("launched on several ranks without --shard: every rank "
+                     "would run the whole evaluation")
     return args
 
 
@@ -169,6 +186,18 @@ def main(argv=None):
     set_numerics()
     cfg = load_config(args.cfg)
     device = resolve_device(cfg)
+    group = setup(device.type) if args.shard else None
+    try:
+        evaluate_cli(args, cfg, device if group is None else group.device,
+                     group)
+    finally:
+        teardown(group)
+
+
+def evaluate_cli(args, cfg, device, group):
+    """``main`` once the device and the world are set: the clean or SEA
+    evaluation, split over ``group``'s ranks (or alone)."""
+    main_rank = is_main(group)
     dataset_cfg, test_cfg = cfg["DATASET"], cfg["EVAL"]
     n_cls = test_cfg["N_CLS"]
     _, crop_size = dataset_eval_geometry(test_cfg["NAME"])
@@ -179,10 +208,12 @@ def main(argv=None):
     if ckpt_path and os.path.exists(str(ckpt_path)):
         load_weights(module, ckpt_path, cfg["MODEL"]["NAME"],
                      test_cfg.get("BACKBONE", cfg["MODEL"].get("BACKBONE")))
-    else:
+    elif main_rank:
         print(f"WARNING: no checkpoint at {ckpt_path!r}; "
               "evaluating random init")
-    logits_fn = ModelBundle(module.to(device), args.precision).logits_fn
+    module.to(device)
+    replicate(module, group)  # rank 0's weights, whatever the other disks
+    logits_fn = ModelBundle(module, args.precision).logits_fn
 
     ds = get_segmentation_dataset(test_cfg["NAME"], root=dataset_cfg["ROOT"],
                                   split="val", crop_size=crop_size)
@@ -192,13 +223,15 @@ def main(argv=None):
     weights = class_balance_weights(test_cfg["NAME"])
     save_dir = str(cfg.get("SAVE_DIR", "./outputs"))
     os.makedirs(save_dir, exist_ok=True)
-    logger = Logger(os.path.join(save_dir, "sea_eval_log.txt"))
+    logger = Logger(os.path.join(save_dir, "sea_eval_log.txt") if main_rank
+                    else None, quiet=not main_rank)
 
     def cleanup_cache():
         if not args.cleanup:
             return
+        barrier(group)  # no rank reads the cache any more
         cache_dir = os.path.join(save_dir, "argmax-logs")
-        if os.path.isdir(cache_dir):
+        if main_rank and os.path.isdir(cache_dir):
             shutil.rmtree(cache_dir)
             logger.log(f"--cleanup: removed resume cache {cache_dir}")
 
@@ -217,16 +250,18 @@ def main(argv=None):
             stats, _ = eval_performance(msf_fn, make_loader(),
                                         num_classes=n_cls,
                                         n_batches=args.n_batches,
-                                        device=device)
+                                        device=device, group=group,
+                                        return_preds=False)
             logger.log(f"MSF clean performance: {stats.as_dict()}")
         else:
             stats, _ = eval_performance(logits_fn, make_loader(),
                                         num_classes=n_cls,
                                         n_batches=args.n_batches,
-                                        device=device)
+                                        device=device, group=group,
+                                        return_preds=False)
             logger.log(f"Clean performance: {stats.as_dict()}")
         cleanup_cache()
-        _log_launches(logger)
+        _log_launches(logger, group)
         return
 
     stats_dir = os.path.join(save_dir, "sea-stats")
@@ -243,8 +278,11 @@ def main(argv=None):
                           weights=weights, n_batches=args.n_batches,
                           seed=SEED, verbose=True, cache_tag=cache_tag,
                           wc_engine=args.wc_engine, device=device,
-                          resume_dir=os.path.join(save_dir, "argmax-logs"))
+                          resume_dir=os.path.join(save_dir, "argmax-logs"),
+                          group=group)
         logger.log(json.dumps(results, indent=2, default=float))
+        if not main_rank:
+            continue
         # per-attack text reports; parity: writeIndivloss
         # (semseg/utils/utils.py:236-245)
         for loss_name, st in zip(SEA_LOSSES, results["loss-wise_stats"]):
@@ -265,11 +303,17 @@ def main(argv=None):
 
     # every eps in the sweep completed: safe to drop the resume cache
     cleanup_cache()
-    _log_launches(logger)
+    _log_launches(logger, group)
 
 
-def _log_launches(logger: Logger) -> None:
-    logger.log("kernel launches: " + json.dumps(kernels.launch_counts()))
+def _log_launches(logger: Logger, group) -> None:
+    """Each kernel's launches, summed over the ranks (and by rank under
+    a group)."""
+    counts = gather_objects(kernels.launch_counts(), group)
+    logger.log("kernel launches: " + json.dumps(
+        {k: sum(c[k] for c in counts) for k in counts[0]}))
+    if group is not None:
+        logger.log("kernel launches by rank: " + json.dumps(counts))
 
 
 if __name__ == "__main__":

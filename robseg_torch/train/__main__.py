@@ -1,4 +1,5 @@
-"""PIR-AT training CLI of the port, on one card.
+"""PIR-AT training CLI of the port, on one card or data-parallel over
+several.
 
 Counterpart of ``tools/train.py`` (reference ``tools/train_rob_seg.py``):
 config-driven model, optimizer and schedule per family, PIR init from
@@ -15,6 +16,22 @@ Usage:
     python -m robseg_torch.train --cfg configs/pascalvoc_convnext.yaml \
         [--max_iters N] [--resume --run_dir DIR] [--fused_attack] \
         [--precision default|bf16|f32]
+    torchrun --nproc_per_node N -m robseg_torch.train --cfg ... [--multihost]
+
+Under ``torchrun`` (its ``RANK``/``WORLD_SIZE``/``LOCAL_RANK``/
+``MASTER_*`` environment) the run is data-parallel, one process a card
+(``parallel/mesh.py``; NCCL, or gloo with ``DEVICE: cpu``): each rank
+trains on ``TRAIN.BATCH_SIZE // world`` images of the global batch, the
+ones its shard of the ``ShardedEpochSampler`` holds (``tools/train.py:
+103-119``); gradients, the loss and BatchNorm running statistics are
+averaged over the ranks (``train/trainer.py``); evaluations shard the
+eval batch and sum the confusion matrices. Only rank 0 logs and writes
+checkpoints and weights, then the ranks meet at a barrier; every
+decision that reads a file (``--resume``'s checkpoint and best-so-far, the
+last checkpoint, the best weights' reload) is rank 0's, its data sent to
+every rank, so the ranks of ``--multihost`` (several machines, ``torchrun
+--nnodes``, which requires that environment) need no shared disk.
+Without it the run is the one-card run.
 
 Precision as the JAX CLI resolves it (``tools/train.py:98-111``):
 ``default`` trains in float32 with TF32 in cuBLAS and cuDNN; ``bf16``,
@@ -25,7 +42,8 @@ and losses stay float32; the kernels are unchanged), around the whole
 run; ``f32`` in float32 with TF32 off, ``TRAIN.AMP`` ignored.
 
 The config's ``DEVICE`` picks the device (``tpu``/``gpu``/``cuda`` -> the
-CUDA card, ``cpu`` -> the CPU; no fallback). ``--fused_attack`` (UperNet)
+CUDA card, rank r's ``cuda:{LOCAL_RANK}``; ``cpu`` -> the CPU; no
+fallback). ``--fused_attack`` (UperNet)
 makes the adversarial examples through the block kernels' twin of the
 model; the update always differentiates the plain module. On exit the CLI
 prints one ``kernel launches: {...}`` JSON line.
@@ -35,9 +53,10 @@ raw images into ``2 * BASE_SIZE`` square buffers (``load_raw_batch``, the
 ``ShardedEpochSampler``'s indices, through ``prefetch``) and
 ``augment_batch`` flips, scales, pads, blurs and crops them on the card;
 the batch stays there. Its draws come from a ``torch.Generator`` seeded
-with ``SEED + 7`` at every start, as the JAX CLI seeds its key, so a
-resumed run does not continue the draws; the batches of an epoch already
-trained are skipped on resume, as on the host path.
+with ``SEED + 7`` at every start, as the JAX CLI seeds its key (under
+data parallelism a generator a rank, seeded from ``SEED + 7`` and the
+rank), so a resumed run does not continue the draws; the batches of an
+epoch already trained are skipped on resume, as on the host path.
 """
 
 from __future__ import annotations
@@ -61,6 +80,10 @@ from robseg_torch.data.device_transforms import augment_batch, load_raw_batch
 from robseg_torch.infer import set_numerics
 from robseg_torch.models import build_model
 from robseg_torch.ops.precision import bf16_products
+from robseg_torch.parallel import (RENDEZVOUS_ENV, barrier,
+                                   broadcast_object, fold_seed,
+                                   gather_objects, is_main, replicate, setup,
+                                   shard_batch, teardown, world_size)
 from robseg_torch.train.checkpoint import CheckpointManager, save_weights
 from robseg_torch.train.optim import (freeze_mask, make_optimizer,
                                       pspnet_lr_scales)
@@ -114,11 +137,14 @@ def build_optimizer(cfg, model_name, module, max_iters, iters_per_epoch,
 
 
 def raw_batches(dataset, *, batch_size: int, max_iters: int, seed: int,
-                start_iter: int, buffer: int):
+                start_iter: int, buffer: int, num_shards: int = 1,
+                host_id: int = 0):
     """``load_raw_batch`` buffers (``buffer`` square) for the iterations
     ``start_iter`` to ``max_iters``, in the ``ShardedEpochSampler``'s
-    order (one shard), the last partial batch of an epoch dropped."""
-    sampler = ShardedEpochSampler(len(dataset), 1, seed=seed)
+    order, the last partial batch of an epoch dropped: ``batch_size``
+    images of shard ``host_id`` of ``num_shards`` (one shard a rank)."""
+    sampler = ShardedEpochSampler(len(dataset), num_shards, seed=seed,
+                                  num_hosts=num_shards, host_id=host_id)
     per_epoch = max(sampler.num_samples // batch_size, 1)
     it = start_iter
     epoch = it // per_epoch
@@ -163,7 +189,10 @@ def parse_args(argv=None):
     parser.add_argument("--max_iters", type=int, default=None,
                         help="override the EPOCHS-derived iteration count")
     parser.add_argument("--multihost", action="store_true",
-                        help="not ported: the port trains on one card")
+                        help="a run over several machines (torchrun "
+                             "--nnodes): requires torchrun's rendezvous "
+                             "environment (" + ", ".join(RENDEZVOUS_ENV)
+                             + ")")
     parser.add_argument("--resume", action="store_true")
     parser.add_argument("--run_dir", type=str, default=None,
                         help="reuse this run directory (needed for --resume "
@@ -182,9 +211,10 @@ def parse_args(argv=None):
                              "block kernels (UperNet only); the update "
                              "differentiates the plain module")
     args = parser.parse_args(argv)
-    if args.multihost:
-        parser.error("--multihost: the port trains on one card (ROADMAP.md, "
-                     "section 1 item 9)")
+    missing = [k for k in RENDEZVOUS_ENV if k not in os.environ]
+    if args.multihost and missing:
+        parser.error(f"--multihost: launch it with torchrun; no {missing} in "
+                     "the environment")
     return args
 
 
@@ -204,14 +234,32 @@ def main(argv=None):
 
 
 def run(args, cfg, t: TrainSettings, precision: str):
-    """The training run of ``main`` once its numerics are set."""
+    """The training run of ``main`` once its numerics are set: on one
+    card, or on this rank of the world ``torchrun`` describes."""
     device = resolve_device(cfg)
+    group = setup(device.type)
+    try:
+        train(args, cfg, t, precision, group,
+              device if group is None else group.device)
+    finally:
+        teardown(group)
+
+
+def train(args, cfg, t: TrainSettings, precision: str, group, device):
+    """``run`` on ``device``, data-parallel over ``group`` (or alone)."""
     dataset_cfg, model_cfg = cfg["DATASET"], cfg["MODEL"]
     n_cls = dataset_cfg["N_CLS"]
     model_name = model_cfg["NAME"]
     backbone = model_cfg.get("BACKBONE", "")
     seed = dataset_cfg.get("SEED", 0)
     clean = "clean" in str(cfg.get("ADDENDUM", ""))
+    main_rank = is_main(group)
+    world = world_size(group)
+    rank = 0 if group is None else group.rank
+    # the JAX CLI's check (tools/train.py:117-119)
+    if not (t.batch_size % world == 0 or t.batch_size >= world):
+        raise SystemExit(f"global batch {t.batch_size} vs {world} ranks")
+    per_rank = max(t.batch_size // world, 1)
 
     save_dir = str(cfg.get("SAVE_DIR", "./outputs"))
     if args.run_dir:
@@ -223,8 +271,10 @@ def run(args, cfg, t: TrainSettings, precision: str):
             save_dir, str(dataset_cfg["NAME"]),
             f"{model_name}_{backbone}_adv_{t.adversarial}_{stamp}_"
             f"{t.attack}_{t.loss_fn}{cfg.get('ADDENDUM', '')}")
+    save_path = broadcast_object(save_path, group)  # rank 0's time stamp
     os.makedirs(save_path, exist_ok=True)
-    logger = Logger(os.path.join(save_path, "train_log"))
+    logger = Logger(os.path.join(save_path, "train_log") if main_rank
+                    else None, quiet=not main_rank)
     logger.log(str(cfg))
 
     torch.manual_seed(seed)
@@ -237,6 +287,7 @@ def run(args, cfg, t: TrainSettings, precision: str):
         logger.log(f"PIR init ({model_name}): loaded {n} robust tensors "
                    f"from {pretrained}")
     module.to(device)
+    replicate(module, group)
 
     train_ds = get_segmentation_dataset(
         dataset_cfg["NAME"], root=dataset_cfg["ROOT"], split="train",
@@ -251,6 +302,9 @@ def run(args, cfg, t: TrainSettings, precision: str):
     max_iters = args.max_iters or t.epochs * iters_per_epoch
     logger.log(f"device={device} batch={t.batch_size} "
                f"iters/epoch={iters_per_epoch} max_iters={max_iters}")
+    if group is not None:
+        logger.log(f"data-parallel: {world} ranks ({group.backend}), "
+                   f"{per_rank} images a rank")
     logger.log(f"precision: {precision} ({PRECISION_LOG[precision]}; "
                f"--precision {args.precision}, TRAIN.AMP {t.amp})")
 
@@ -259,9 +313,9 @@ def run(args, cfg, t: TrainSettings, precision: str):
         frozen = freeze_mask(module)
         logger.log("TRAIN.FREEZE: backbone parameters frozen (not in the "
                    "optimizer)")
-    if not t.ddp:
-        logger.log("note: TRAIN.DDP=false has no effect: the port trains "
-                   "on one card")
+    if not t.ddp and world > 1:
+        logger.log(f"note: TRAIN.DDP=false is ignored: the port runs "
+                   f"data-parallel over all {world} ranks")
     opt, sched = build_optimizer(cfg, model_name, module, max_iters,
                                  iters_per_epoch, frozen_mask=frozen)
     attack = AttackConfig(enabled=t.adversarial, name=t.attack,
@@ -277,32 +331,43 @@ def run(args, cfg, t: TrainSettings, precision: str):
     generator = torch.Generator(device=device)
     generator.manual_seed(seed)
     trainer = Trainer(module, model_name, opt, attack, twin=twin,
-                      generator=generator)
+                      generator=generator, group=group)
 
     ckpt_mgr = CheckpointManager(os.path.join(save_path, "ckpts"))
     if args.resume:
-        state = ckpt_mgr.restore()
+        # rank 0's checkpoint on every rank: the ranks need not share a disk
+        state = broadcast_object(ckpt_mgr.restore() if main_rank else None,
+                                 group)
         if state is not None:
             trainer.load_state_dict(state)
             logger.log(f"Resumed from step {trainer.step}")
 
+    def save(write):
+        """``write()`` on rank 0, then the ranks meet."""
+        if main_rank:
+            write()
+        barrier(group)
+
     if t.device_aug:
         aug_gen = torch.Generator(device=device)
-        aug_gen.manual_seed(seed + 7)
+        aug_gen.manual_seed(seed + 7 if group is None
+                            else fold_seed(seed + 7, rank))
         loader = device_aug_batches(
-            prefetch(raw_batches(train_ds, batch_size=t.batch_size,
+            prefetch(raw_batches(train_ds, batch_size=per_rank,
                                  max_iters=max_iters, seed=seed,
                                  start_iter=trainer.step,
-                                 buffer=2 * t.base_size), depth=2),
+                                 buffer=2 * t.base_size, num_shards=world,
+                                 host_id=rank), depth=2),
             device, aug_gen, base_size=t.base_size,
             crop_size=t.image_size[0])
     else:
         loader = (
             (torch.from_numpy(x).to(device), torch.from_numpy(y).to(device))
             for x, y in prefetch(IterationBasedLoader(
-                train_ds, batch_size=t.batch_size, max_iters=max_iters,
-                seed=seed, start_iter=trainer.step), depth=2))
-    eval_bs = t.batch_size
+                train_ds, batch_size=per_rank, max_iters=max_iters,
+                seed=seed, start_iter=trainer.step, num_shards=world,
+                num_hosts=world, host_id=rank), depth=2))
+    eval_bs = per_rank * world
 
     def run_eval(n_batches=None):
         if n_batches is None:
@@ -317,15 +382,19 @@ def run(args, cfg, t: TrainSettings, precision: str):
                 x = np.concatenate([x, np.repeat(x[-1:], reps, axis=0)])
                 y = np.concatenate(
                     [y, np.full((reps,) + y.shape[1:], -1, y.dtype)])
-            hist = trainer.eval_step(torch.from_numpy(x).to(device),
-                                     torch.from_numpy(y).to(device), hist)
+            hist = trainer.eval_step(
+                shard_batch(torch.from_numpy(x), group).to(device),
+                shard_batch(torch.from_numpy(y), group).to(device), hist)
         return metrics_from_hist(hist)
 
     best_miou, best_aacc = 0.0, 0.0
     best_json = os.path.join(save_path, "best.json")
-    if args.resume and os.path.exists(best_json):
+    b = None
+    if args.resume and main_rank and os.path.exists(best_json):
         with open(best_json) as f:
             b = json.load(f)
+    b = broadcast_object(b, group)
+    if b is not None:
         best_miou, best_aacc = b["best_miou"], b["best_aacc"]
         logger.log(f"Restored best-so-far: mIoU={best_miou:.4f} "
                    f"aAcc={best_aacc:.4f}")
@@ -354,32 +423,45 @@ def run(args, cfg, t: TrainSettings, precision: str):
             m = run_eval()
             logger.log(f"Epoch [{it // max(iters_per_epoch, 1) + 1}] val "
                        f"mIoU={m['mIoU']:.4f} aAcc={m['aAcc']:.4f}")
-            ckpt_mgr.save(trainer.step, trainer.state_dict())
+            save(lambda: ckpt_mgr.save(trainer.step, trainer.state_dict()))
             if m["mIoU"] > best_miou:
                 best_miou = m["mIoU"]
-                save_weights(os.path.join(save_path, "best_model.pth"),
-                             module)
+                save(lambda: save_weights(
+                    os.path.join(save_path, "best_model.pth"), module))
             best_aacc = max(best_aacc, m["aAcc"])
-            with open(best_json, "w") as f:
-                json.dump({"best_miou": best_miou, "best_aacc": best_aacc},
-                          f)
+
+            def write_best():
+                with open(best_json, "w") as f:
+                    json.dump({"best_miou": best_miou,
+                               "best_aacc": best_aacc}, f)
+            save(write_best)
 
     # endgame; parity: train_rob_seg.py:426-454
-    if ckpt_mgr.latest_step() != trainer.step:  # not saved by the last eval
-        ckpt_mgr.save(trainer.step, trainer.state_dict())
-    save_weights(os.path.join(save_path, "final_model.pth"), module)
+    def save_last():
+        if ckpt_mgr.latest_step() != trainer.step:  # not saved by an eval
+            ckpt_mgr.save(trainer.step, trainer.state_dict())
+    save(save_last)
+    save(lambda: save_weights(os.path.join(save_path, "final_model.pth"),
+                              module))
     elapsed = time.gmtime(time.time() - t0)
     logger.log(format_table([
         ("Best mIoU", f"{best_miou:.2f}"), ("Best aAcc", f"{best_aacc:.2f}"),
         ("Total Training Time", time.strftime("%H:%M:%S", elapsed))]))
     best_path = os.path.join(save_path, "best_model.pth")
-    if os.path.exists(best_path):
-        module.load_state_dict(torch.load(best_path, map_location=device))
+    if broadcast_object(os.path.exists(best_path), group):
+        if main_rank:
+            module.load_state_dict(torch.load(best_path,
+                                              map_location=device))
+        replicate(module, group)
         logger.log("Reloaded best checkpoint for the final evaluation")
     m = run_eval(n_batches=-1)
     logger.log(format_table([("full mIoU", f"{m['mIoU']:.2f}"),
                              ("full aAcc", f"{m['aAcc']:.2f}")]))
-    logger.log("kernel launches: " + json.dumps(kernels.launch_counts()))
+    counts = gather_objects(kernels.launch_counts(), group)
+    logger.log("kernel launches: " + json.dumps(
+        {k: sum(c[k] for c in counts) for k in counts[0]}))
+    if group is not None:
+        logger.log("kernel launches by rank: " + json.dumps(counts))
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
 """PIR-AT trainer: an adversarial attack in eval mode, then the update in
-train mode, on one card.
+train mode, on one card or data-parallel over several.
 
 Port of ``robseg_tpu/train/trainer.py`` (reference ``tools/
 train_rob_seg.py``, ``Trainer``):
@@ -20,10 +20,24 @@ kernels; or the plain module), called through
 ``torch.func.functional_call`` on this step's parameters, detached, and
 this step's BatchNorm statistics. It holds no weights of its own that the
 attack reads (it may live on the ``meta`` device), so it never goes stale,
-and the attack's input gradients touch no parameter's ``.grad``. One card:
-no DDP and no cross-replica mean. The eval step accumulates the confusion
-matrix through ``ops.metrics.confusion_matrix`` (the confusion kernel on
-the card).
+and the attack's input gradients touch no parameter's ``.grad``. The eval
+step accumulates the confusion matrix through
+``ops.metrics.confusion_matrix`` (the confusion kernel on the card).
+
+Data parallelism (``group``, the JAX ``shard_map`` step,
+``robseg_tpu/train/trainer.py:91-195``): each rank trains on its shard of
+the global batch. The attack stays on the rank (no collective runs in
+it); after the backward pass the gradients are averaged over the ranks in
+one all-reduce, and so is the loss; each BatchNorm normalises with its
+rank's batch statistics (no ``SyncBatchNorm``), and the running
+statistics are averaged after the step, so the replicas stay identical.
+An explicit all-reduce, not DDP: DDP's default ``broadcast_buffers``
+copies rank 0's running statistics instead of averaging them, and its
+hooks would reduce once per bucket during the backward instead of once
+after it. Dropout and DropPath draw from the rank's generator, seeded at
+each step from (seed, step, rank), as JAX folds the step and
+``axis_index`` into its key. The eval step's confusion matrix is summed
+over the ranks.
 """
 
 from __future__ import annotations
@@ -42,6 +56,7 @@ from robseg_torch.models.layers import set_generator
 from robseg_torch.ops.losses import segmentation_cross_entropy
 from robseg_torch.ops.metrics import (confusion_matrix, f1_from_hist,
                                       iou_from_hist, pixel_acc_from_hist)
+from robseg_torch.parallel import DataGroup, all_mean_, all_sum_, fold_seed
 from robseg_torch.train.optim import ScheduledOptimizer
 
 
@@ -85,12 +100,16 @@ class Trainer:
     ``None`` means ``module`` itself, switched to eval mode for the
     attack. ``generator`` (on the module's device) drives DropPath,
     dropout and the APGD random start; its state is part of
-    ``state_dict``."""
+    ``state_dict``. ``group``: train data-parallel (the module's
+    docstring); the images of each step are this rank's shard, and
+    ``generator`` is reseeded at each step from its seed, the step and the
+    rank."""
 
     def __init__(self, module: nn.Module, model_name: str,
                  optimizer: ScheduledOptimizer, attack: AttackConfig,
                  twin: Optional[nn.Module] = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 group: Optional[DataGroup] = None):
         if attack.enabled and attack.name not in ("pgd", "apgd"):
             # the reference's non-pgd branch passes a nonexistent gpuu=
             # kwarg (train_rob_seg.py:303-315)
@@ -103,6 +122,8 @@ class Trainer:
         self.twin = twin
         self.generator = generator
         set_generator(module, generator)
+        self.group = group
+        self.seed = None if generator is None else generator.initial_seed()
         self.step = 0
 
     @contextlib.contextmanager
@@ -137,30 +158,42 @@ class Trainer:
 
     def train_step(self, images: torch.Tensor, labels: torch.Tensor
                    ) -> torch.Tensor:
-        """One PIR-AT step; returns the loss (detached, on the device)."""
+        """One PIR-AT step; returns the loss (detached, on the device; the
+        mean over the ranks under ``group``)."""
+        if self.group is not None and self.generator is not None:
+            self.generator.manual_seed(
+                fold_seed(self.seed, self.step, self.group.rank))
         x = self.attack(images, labels) if self.attack_cfg.enabled \
             else images
         self.module.train()
         self.optimizer.zero_grad()
         loss = self.loss_fn(self.module, x, labels)
         loss.backward()
+        loss = loss.detach()
+        if self.group is not None:
+            all_mean_([p.grad for p in self.module.parameters()
+                       if p.grad is not None] + [loss], self.group)
+            all_mean_([b for n, b in self.module.named_buffers()
+                       if n.endswith(("running_mean", "running_var"))],
+                      self.group)
         self.optimizer.step(self.step)
         self.step += 1
-        return loss.detach()
+        return loss
 
     @torch.no_grad()
     def eval_step(self, images: torch.Tensor, labels: torch.Tensor,
                   hist: torch.Tensor) -> torch.Tensor:
         """``hist`` plus the batch's confusion matrix, the module in eval
-        mode."""
+        mode (summed over the ranks' shards under ``group``)."""
         self.module.eval()
         try:
             pred = self.module(images).argmax(1)
         finally:
             self.module.train()
-        return hist + confusion_matrix(pred, labels,
-                                       num_classes=hist.shape[0],
-                                       ignore_label=-1)
+        inc = confusion_matrix(pred, labels, num_classes=hist.shape[0],
+                               ignore_label=-1)
+        all_sum_([inc], self.group)
+        return hist + inc
 
     def state_dict(self) -> Dict[str, Any]:
         return {"step": self.step, "model": self.module.state_dict(),

@@ -485,3 +485,15 @@ def test_product_operands_sees_unrounded_operands(smoke):
     with smoke.ProductOperands() as off:
         precision.conv2d(x, w, None, 1, 1).sum().backward()
     assert len(off.bad) == 2
+
+
+@pytest.mark.parametrize("cards,want", [
+    (1, [(1, "nccl"), (2, "gloo")]),
+    (2, [(1, "nccl"), (2, "nccl")]),
+    (4, [(1, "nccl"), (2, "nccl"), (4, "nccl")]),
+    (8, [(1, "nccl"), (2, "nccl"), (4, "nccl")])])
+def test_data_parallel_worlds_by_card_count(smoke, cards, want):
+    """Phase D's worlds: one rank over NCCL as the reference, then 2 (and
+    4) ranks over NCCL with a card each, or with one card 2 ranks sharing
+    it over gloo (NCCL refuses two ranks on one card)."""
+    assert smoke.dp_worlds(cards) == want

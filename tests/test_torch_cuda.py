@@ -548,3 +548,55 @@ def test_bf16_products_on_card_match_float64(dev, case):
         assert a.dtype == torch.float32
         err = float((a.double() - b).abs().max() / b.abs().max())
         assert err <= 1e-3, err
+
+
+def _data_parallel_rank(group):
+    """A rank of ``test_data_parallel_world_on_card``: one data-parallel
+    train step on its shard. Returns the launch counts, the loss and a
+    checksum of the parameters."""
+    from robseg_torch.models import build_model
+    from robseg_torch.parallel import replicate, shard_batch
+    from robseg_torch.train import AttackConfig, Trainer, make_optimizer
+    from robseg_torch.train.schedules import poly_lr
+    dev = group.device
+    name = ("UperNetForSemanticSegmentation", "ConvNeXt-T_CVST", 21)
+    torch.manual_seed(0)
+    m = build_model(*name, fused=False).to(dev)
+    replicate(m, group)
+    with torch.device("meta"):
+        twin = build_model(*name, fused=True)
+    trainer = Trainer(m, name[0], make_optimizer("adamw", m,
+                                                 poly_lr(1e-4, 10)),
+                      AttackConfig(eps=4 / 255, n_iters=2), twin=twin,
+                      generator=torch.Generator(device=dev).manual_seed(0),
+                      group=group)
+    g = torch.Generator(device=dev).manual_seed(1)
+    x = torch.rand((4, 3, 64, 64), device=dev, generator=g)
+    y = torch.randint(0, 21, (4, 64, 64), device=dev, generator=g)
+    kernels.reset_launch_counts()
+    loss = float(trainer.train_step(shard_batch(x, group),
+                                    shard_batch(y, group)))
+    with torch.no_grad():
+        digest = [float(p.double().sum()) for p in m.parameters()]
+    return kernels.launch_counts(), loss, digest
+
+
+def test_data_parallel_world_on_card(dev):
+    """A world of 2 ranks on the card(s), over NCCL with a card a rank or,
+    with one card, sharing it over gloo (chip_smoke.py's phase D picks the
+    same; its phase 1 builds the kernels with such a world, every rank
+    compiling at once): one data-parallel PIR-AT step of
+    UperNet-ConvNeXt-T_CVST (full width, 64^2, 2 images a rank, PGD-2
+    through the block kernels' twin). Each rank launched the block pair,
+    the loss (averaged over the ranks) is finite and the same on both,
+    and the replicas are identical."""
+    import math
+    from robseg_torch.parallel import spawn_world
+    backend = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
+    ranks = spawn_world(_data_parallel_rank, 2, device_type="cuda",
+                        backend=backend, timeout_s=300)
+    for counts, loss, digest in ranks:
+        assert counts["convnext_block_fwd"] > 0
+        assert counts["convnext_block_dx"] > 0
+        assert math.isfinite(loss) and loss == ranks[0][1]
+        assert digest == ranks[0][2]

@@ -175,15 +175,23 @@ def test_infer_cli_bf16_clean_eval(tmp_path):
 
 
 @pytest.mark.parametrize("flags,why", [
-    ("--shard", "TPU mesh"), ("--fused", "always on")],
+    ("--shard", "without --shard"), ("--fused", "always on")],
     ids=["--shard", "--fused"])
-def test_infer_refuses_unported_flags(flags, why, capsys):
-    """The JAX CLI's TPU-only flags are parser errors with their reason:
-    ``--shard`` shards over a TPU mesh and the port runs on one card;
-    under CUDA the port's kernels are always on, so ``--fused`` has
-    nothing to turn on. (``--msf`` ran into this refusal until it was
-    ported; tests/test_torch_msf.py runs it.)"""
+def test_infer_refuses_unported_flags(flags, why, capsys, monkeypatch):
+    """The JAX CLI's TPU-only flag ``--fused`` is a parser error with its
+    reason: under CUDA the port's kernels are always on, so it has nothing
+    to turn on. ``--shard`` met the same refusal until data parallelism
+    was ported (``robseg_torch/parallel``; its runs:
+    tests/test_torch_parallel.py): it parses now, and what is refused is a
+    launch on several ranks without it, where every rank would evaluate
+    everything. (``--msf`` ran into this refusal until it was ported;
+    tests/test_torch_msf.py runs it.)"""
     from robseg_torch import infer
+    if flags == "--shard":
+        assert infer.parse_args(["--cfg", "x.yaml", "--shard"]).shard
+        monkeypatch.setenv("WORLD_SIZE", "2")
+        assert infer.parse_args(["--cfg", "x.yaml", "--shard"]).shard
+        flags = ""
     with pytest.raises(SystemExit):
         infer.parse_args(["--cfg", "x.yaml", *flags.split()])
     err = capsys.readouterr().err

@@ -431,12 +431,21 @@ def test_train_cli_on_cpu_trains_and_resumes(tmp_path, monkeypatch, capsys):
 
 
 def test_train_cli_refusals(tmp_path, monkeypatch):
-    """``--multihost`` is a parser error and ``DEVICE: tpu`` without a
-    card raises; ``--precision bf16`` and ``TRAIN.AMP`` train (their runs:
+    """``--multihost`` without torchrun's rendezvous environment is a
+    parser error (with it, it parses; the data-parallel runs:
+    tests/test_torch_parallel.py) and ``DEVICE: tpu`` without a card
+    raises; ``--precision bf16`` and ``TRAIN.AMP`` train (their runs:
     tests/test_torch_bf16_train.py)."""
     from robseg_torch.train import __main__ as cli
+    for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
     with pytest.raises(SystemExit):
         cli.parse_args(["--cfg", "x.yaml", "--multihost"])
+    with monkeypatch.context() as mp:
+        for k, v in (("RANK", "0"), ("WORLD_SIZE", "1"),
+                     ("MASTER_ADDR", "localhost"), ("MASTER_PORT", "1")):
+            mp.setenv(k, v)
+        assert cli.parse_args(["--cfg", "x.yaml", "--multihost"]).multihost
     assert cli.parse_args(["--cfg", "x.yaml", "--precision",
                            "bf16"]).precision == "bf16"
     cfg = _cfg(tmp_path)
