@@ -485,9 +485,13 @@ def block_part(name: str) -> str:
     return "packing"
 
 
-def print_split(label: str, fn) -> dict:
+def print_split(label: str, fn, part_bytes=None) -> dict:
     """Print each CUDA kernel's own time in one call of ``fn`` and return
-    the times summed by block part (``block_part``)."""
+    the times summed by block part (``block_part``). ``part_bytes`` maps a
+    kernel's name (``dwconv_ln_kernel``, ``dwcorr_kernel``,
+    ``relu_grad_kernel``) to the bytes it must move: each such kernel is
+    printed again beside its bytes bound and share, and the returned dict
+    gets ``"bounds": {name: [ms, bound_ms]}``."""
     split = kernel_split(fn)
     if not split:
         print(f"{label} split: not measured (torch.profiler recorded no "
@@ -499,7 +503,30 @@ def print_split(label: str, fn) -> dict:
     print(f"{label} split: " + "; ".join(
         f"{short_name(k)} {ms:.4f} ms x{n:g}" for k, ms, n in split),
         flush=True)
+    if part_bytes:
+        bounds = {}
+        for key, nbytes in part_bytes.items():
+            ms = sum(t for kname, t, _ in split if key in kname)
+            bounds[key] = [ms, nbytes / HBM_BYTES_PER_S * 1e3]
+        parts["bounds"] = bounds
+        print(f"{label} parts against their bytes bounds: " + "; ".join(
+            f"{key} {ms:.4f} ms, bound {b:.4f} ms, share {b / ms:.1%}"
+            for key, (ms, b) in bounds.items() if ms > 0), flush=True)
     return parts
+
+
+def depthwise_bytes(n: int, c: int, io: int, dx: bool) -> dict:
+    """Bytes each depthwise pass of one block call must move, each input
+    read once and each output written once (``io`` bytes an element of x,
+    dy and dx): the forward's dwconv_ln reads x and writes u (bf16); the
+    backward's also reads dy and writes xhat (f32) and gms (bf16); dwcorr
+    reads dyconv (f32) and dy and writes dx. The taps (49 C f32) and
+    vectors beside them."""
+    taps = 49 * c * 4 + 5 * c * 4
+    if not dx:
+        return {"dwconv_ln_kernel": n * c * (io + 2) + taps}
+    return {"dwconv_ln_kernel": n * c * (2 * io + 2 + 4 + 2) + n * 4 + taps,
+            "dwcorr_kernel": n * c * (4 + 2 * io) + taps}
 
 
 def phase_kernels(dev, results, train_stages=()):
@@ -557,7 +584,8 @@ def phase_kernels(dev, results, train_stages=()):
                  t[0], t[1]),
                 (dxr, "dx", lambda: cb.convnext_block_dx_cuda(x, dy, *p), db,
                  t[2], t[3])):
-            parts = print_split(f"block {shape} {name}", fn)
+            parts = print_split(f"block {shape} {name}", fn,
+                                depthwise_bytes(n, c, 4, name == "dx"))
             bms, bby = bound(*bb)
             print(f"block {shape} {name} by part {json.dumps(parts)} | bound "
                   f"{bms:.4f} ms ({bby}), roofline share {bms / tk:.1%}",
@@ -855,8 +883,10 @@ def phase_fpn(dev, results):
         if shape[0] == BATCH:
             print_split(f"fpn_concat_conv {n}x{shape} fwd",
                         lambda: fc.fpn_concat_conv_fwd_cuda(xs, w, s, t))
+            # relu_grad reads dy and out (f32) and s, writes g (bf16)
             print_split(f"fpn_concat_conv {n}x{shape} dx",
-                        lambda: fc.fpn_concat_conv_dx_cuda(dy, out, w, s))
+                        lambda: fc.fpn_concat_conv_dx_cuda(dy, out, w, s),
+                        {"relu_grad_kernel": m * co * (4 + 4 + 2) + 4 * co})
             for row, tk, tp, tl, bb in ((fwd, t_k[0], t_k[1], lib[0], fb),
                                         (dxr, t_k[2], t_k[3], lib[1], db)):
                 row.update(ms=tk, plain_ms=tp, library_ms=tl)
@@ -1046,6 +1076,7 @@ def phase_bf16_kernels(dev, results):
     fwd, dxr = rows.values()
     stages = [(BATCH, 128, 128, 96), (BATCH, 64, 64, 192),
               (BATCH, 32, 32, 384), (BATCH, 16, 16, 768)]
+    dw_sum = {"dwconv_ln_kernel": [0.0, 0.0], "dwcorr_kernel": [0.0, 0.0]}
     for shape in stages + [(2, 119, 119, 96)]:
         p = [t.to(bf16) for t in block_params(rng, shape[-1], dev)]
         x = torch.randn(shape, device=dev).to(bf16)
@@ -1094,8 +1125,13 @@ def phase_bf16_kernels(dev, results):
                  t[0], t[1], fb),
                 (dxr, "dx", lambda: cb.convnext_block_dx_bf16_cuda(x, dy, *p),
                  t[2], t[3], db)):
-            parts = print_split(f"block bf16 I/O {shape} {name}", fn)
+            parts = print_split(f"block bf16 I/O {shape} {name}", fn,
+                                depthwise_bytes(n, c, 2, name == "dx"))
             bms, bby = bound(*bb)
+            if name == "dx" and shape in stages:
+                for key, (ms, b) in parts.get("bounds", {}).items():
+                    dw_sum[key] = [a + v for a, v in zip(dw_sum[key],
+                                                         (ms, b))]
             row["stages"].append({"shape": list(shape), "ms": tk,
                                   "plain_ms": tp, "bound_ms": bms,
                                   "bound_by": bby, "share": bms / tk,
@@ -1106,6 +1142,14 @@ def phase_bf16_kernels(dev, results):
                 add_bound(row, *bb)
         del x, dy, out, out32, dx, dx32, want, dx_want
     results.update(rows)
+    ms, b = (sum(v[i] for v in dw_sum.values()) for i in (0, 1))
+    print("block bf16 I/O dx, the depthwise passes of the four batch-16 "
+          "stages summed: " + " + ".join(
+              f"{key} {v[0]:.4f} ms (bound {v[1]:.4f}, share "
+              f"{fmt_share(v[1], v[0] or None)})"
+              for key, v in dw_sum.items())
+          + f" = {ms:.4f} ms, bytes bound {b:.4f} ms, share "
+          f"{fmt_share(b, ms or None)}", flush=True)
 
     n, shape, co = 4, (BATCH, 128, 128, 512), 512
     c = shape[-1]
@@ -1168,8 +1212,10 @@ def phase_bf16_kernels(dev, results):
                              f"{e_dx}")
     print_split(f"fpn_concat_conv bf16 I/O {n}x{shape} fwd",
                 lambda: fc.fpn_concat_conv_fwd_bf16_cuda(xs, w, s, t))
+    # relu_grad reads dy and out (bf16) and s, writes g (bf16)
     print_split(f"fpn_concat_conv bf16 I/O {n}x{shape} dx",
-                lambda: fc.fpn_concat_conv_dx_bf16_cuda(dy, out, w, s))
+                lambda: fc.fpn_concat_conv_dx_bf16_cuda(dy, out, w, s),
+                {"relu_grad_kernel": m * co * (2 + 2 + 2) + 4 * co})
     for name, tk, tp, tl, bb, err in (
             ("fpn_concat_conv_fwd_bf16", t_k[0], t_k[1], lib[0], fb, e_fwd),
             ("fpn_concat_conv_dx_bf16", t_k[2], t_k[3], lib[1], db,

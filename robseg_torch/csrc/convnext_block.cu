@@ -101,42 +101,162 @@
 
 namespace {
 
-constexpr int kDwThreads = 256;  // dwconv_ln_kernel: 8 warps
-constexpr int kDwTokens = 8;     // dwcorr_kernel: tokens of one row
-constexpr int kDwRowThreads = 128;
+// The depthwise passes, dwconv_ln_kernel and dwcorr_kernel, are one tiled
+// engine. A tile is TH x TW tokens of one image and every channel, taken a
+// chunk of 32 channels at a time; each of the block's 8 warps computes an
+// RH x RW patch of the tile, lane l channel l of the chunk, its 49 taps in
+// registers, sliding a (RW + 6)-wide window down the patch's RH + 6 input
+// rows (input row r adds its values to the output rows r - ky it reaches;
+// each output sums its taps ky-major, kx-minor, as a direct loop would).
+// The blocks are persistent (two an SM, at most) and walk the tiles
+// strided by the grid, and each block walks the chunks of its tiles
+// through one ring of p.stages stages (2-4, as many as two blocks' shared
+// memory an SM leaves room for) with a full mbarrier each: a stage holds
+// one chunk's (TH + 6) x (TW + 6) halo of the conv's input, brought by TMA
+// (a 4-D map {C, W, H, B}, box {32, TW + 6, TH + 6, 1} starting 3 rows and
+// columns before the tile; the zero fill outside the tensor is the 3-pixel
+// padding and the ragged edge), with the chunk's 49 taps ({32, 49} boxes
+// of the packed (49, C) taps: read through L1, which a deep ring leaves
+// small, each chunk began with a wait on L2). Thread 0 issues chunk n +
+// stages of the block's walk into a stage as soon as the block has read it
+// (the __syncthreads that ends chunk n), the next tile's first chunks too,
+// so loads stay in flight across the LayerNorm and the tile boundaries. Halos
+// stay in the type they have in memory (bf16 x in the bf16 form) and
+// convert where they are read. What needs dy (gms in the backward's
+// dwconv_ln, dx = dy + corr) takes the chunk's TH x TW box of dy from the
+// same stage, and every output leaves 4 or 8 consecutive channels a thread.
+// - dwconv_ln_kernel keeps y = dwconv + bias for the tile's tokens and
+//   every channel in shared memory (f32, [T][C]) and then normalises it, L
+//   lanes a token, lane q holding channels 4 (q + L i) ..: u (bf16, 8-byte
+//   stores) and in the backward xhat (16-byte stores) and 1/sigma; gms
+//   (bf16, 16-byte stores) per chunk from dy's box.
+// - dwcorr_kernel writes the chunk's correlation into a [T][32] f32 tile,
+//   then dx = dy + corr, 8 channels a thread (16 or 32-byte stores).
+// Bound on the H100: bytes. The backward's dwconv_ln moves 16 bytes per
+// element in float32 (x, dy, u, xhat, gms; 12 in bf16), dwcorr 12 (dyconv,
+// dy, dx; 8 in bf16), against 49 FMAs each: 25 M elements at stage 0 of
+// batch 16 take 0.12 / 0.09 ms at 3.35 TB/s and 0.04 ms of FMAs. The tile
+// shrinks as C grows (ROBSEG_DW_TILES), so that y and two stages fit twice
+// an SM in the backward's float32 form at every width.
+constexpr int kDwThreads = 256;     // 8 warps, one RH x RW patch each
+constexpr int kDwChunk = 32;        // channels a chunk: lane l channel l
+constexpr int kDwMaxStages = 4;     // TMA ring depth, in chunks, at most
+constexpr int kDwBlocksPerSm = 2;   // the registers' limit (128 a thread)
+constexpr int kDwSmemBudget = 113 * 1024;  // a block's, two an SM
 
-// The depthwise pass of dwconv_ln_kernel. A block takes a
-// TH x TW tile of one image and every channel, 32 channels at a time: it
-// stages the chunk's (TH + 6) x (TW + 6) halo in shared memory (16-byte
-// loads, zeros outside the image: the padding), so each input element
-// leaves L2 (TH + 6)(TW + 6) / (TH TW) times instead of once per output row
-// (12.25 times in 8-token row segments). Lane l of each warp takes channel
-// l of the chunk (conflict-free shared reads), keeps its 49 taps in
-// registers and computes an RH x RW patch of the tile, sliding a
-// (RW + 6)-wide window down the patch's RH + 6 input rows: input row r adds
-// its values to the output rows r - ky it reaches. Each output sums its
-// taps ky-major, kx-minor, as a direct loop would. The forward pass keeps
-// y = dwconv + bias for the whole tile and every channel in shared memory
-// and then normalises it, one warp per token. TH x TW shrinks as C grows
-// (tile_for), so y stays within 48 KB.
 template <int TH_, int TW_, int RH_, int RW_>
 struct DwTile {
   static constexpr int TH = TH_, TW = TW_, RH = RH_, RW = RW_;
   static constexpr int HH = TH + 6, HW = TW + 6;  // halo rows, columns
+  static constexpr int T = TH * TW;               // tokens of a tile
   static constexpr int WC = TW / RW;              // warps across the tile
-  static_assert((TH / RH) * WC == kDwThreads / 32, "one patch a warp");
-  static constexpr int kHalo = HH * HW * 32;      // floats of one chunk
-  static size_t smem(int C, bool ln) {
-    return sizeof(float) * (kHalo + (ln ? (size_t)TH * TW * C : 0));
+  static_assert(TH % RH == 0 && TW % RW == 0 &&
+                    (TH / RH) * WC == kDwThreads / 32,
+                "one patch a warp");
+  // the LayerNorm pass: L lanes a token, kDwThreads / L tokens a round
+  static constexpr int L = T >= 32 ? 8 : kDwThreads / T;
+  static_assert(T % (kDwThreads / L) == 0, "whole rounds");
+};
+
+// One ring stage: the chunk's halo of the conv's input (Src), its 49 taps
+// ([49][32] f32) and, with DY, its box of dy (IO), each as TMA lays the box
+// down ([rows][columns][32 channels]), 128-byte aligned.
+template <class T, class Src, class IO, bool DY>
+struct DwStage {
+  static constexpr uint32_t kHaloTx = T::HH * T::HW * kDwChunk * sizeof(Src);
+  static constexpr uint32_t kTapsTx = 49 * kDwChunk * 4;
+  static constexpr uint32_t kDyTx = DY ? T::T * kDwChunk * sizeof(IO) : 0;
+  static constexpr uint32_t kHalo = (kHaloTx + 127) & ~127u;
+  static constexpr uint32_t kDy = kHalo + kTapsTx;  // kTapsTx: 49 x 128
+  static constexpr uint32_t kBytes = kDy + ((kDyTx + 127) & ~127u);
+};
+
+struct DwParams {
+  CUtensorMap src;  // the conv's input {C, W, H, B}: x (IO) or dyconv (f32)
+  CUtensorMap dy;   // dy {C, W, H, B} (IO), box {32, TW, TH, 1}
+  CUtensorMap taps; // the packed taps {C, 49} (f32), box {32, 49}
+  const float *dwt, *dwb, *ls, *lb, *gamma;  // taps (49, C); vectors (C)
+  bf16 *u, *gms;
+  float *xhat, *inv;
+  void* dx;  // dwcorr_kernel's output (IO)
+  int H, W, C;
+  int tiles_x, tiles_y, tiles;  // tiles walk x fastest, then y, then image
+  int stages;                   // ring depth, 2..kDwMaxStages
+};
+
+// the block's walk: n = i * chunks + k is chunk k of the block's i-th tile
+struct DwWalk {
+  int chunks;
+  __device__ int tile(int n) const {
+    return blockIdx.x + (n / chunks) * gridDim.x;
   }
 };
 
+__device__ __forceinline__ void dw_origin(const DwParams& p, int tile,
+                                          int& x0, int& y0, int& b,
+                                          int tw, int th) {
+  x0 = (tile % p.tiles_x) * tw;
+  tile /= p.tiles_x;
+  y0 = (tile % p.tiles_y) * th;
+  b = tile / p.tiles_y;
+}
+
+// issue chunk n of the block's walk into its ring stage, if its tile exists
+template <class T, class St>
+__device__ __forceinline__ void dw_issue(const DwParams& p, DwWalk w,
+                                         uint32_t stages, uint32_t bars,
+                                         int n) {
+  const int tile = w.tile(n);
+  if (tile >= p.tiles) return;
+  int x0, y0, b;
+  dw_origin(p, tile, x0, y0, b, T::TW, T::TH);
+  const int st = n % p.stages, c0 = (n % w.chunks) * kDwChunk;
+  const uint32_t full = bars + 8 * st, dst = stages + st * St::kBytes;
+  mbar_expect_tx(full, St::kHaloTx + St::kTapsTx + St::kDyTx);
+  tma_load_4d(dst, &p.src, full, c0, x0 - 3, y0 - 3, b);
+  tma_load_2d(dst + St::kHalo, &p.taps, full, c0, 0);
+  if (St::kDyTx)
+    tma_load_4d(dst + St::kDy, &p.dy, full, c0, x0, y0, b);
+}
+
+// the ring's barriers, then the walk's first stages in flight
+template <class T, class St>
+__device__ __forceinline__ void dw_start(const DwParams& p, DwWalk w,
+                                         uint32_t stages, uint32_t bars) {
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < p.stages; ++st) mbar_init(bars + 8 * st, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    prefetch_map(&p.src);
+    prefetch_map(&p.taps);
+    if (St::kDyTx) prefetch_map(&p.dy);
+  }
+  __syncthreads();
+  if (threadIdx.x == 0)
+    for (int n = 0; n < p.stages; ++n) dw_issue<T, St>(p, w, stages, bars, n);
+}
+
+// the block's shared memory: the ring, then `tail` bytes (y or the
+// correlation tile), then the barriers; `stages` its 128-byte aligned
+// shared-memory address, `sm` the same as a pointer
+struct DwSmem {
+  uint32_t stages;
+  unsigned char* sm;
+};
+__device__ __forceinline__ DwSmem dw_smem() {
+  extern __shared__ unsigned char dw_smem_raw[];
+  const uint32_t raw =
+      static_cast<uint32_t>(__cvta_generic_to_shared(dw_smem_raw));
+  const uint32_t stages = (raw + 127) & ~127u;
+  return DwSmem{stages, dw_smem_raw + (stages - raw)};
+}
+
 // out[o][t] = sum_{ky,kx} halo[ry + o + ky][rx + t + kx] * tap[ky][kx]
 // for this lane's channel; tap already flipped for the correlation
-template <class T>
-__device__ __forceinline__ void dw_patch(const float* halo, const float (&tap)[49],
-                                        int ry, int rx, int lane,
-                                        float (&acc)[T::RH][T::RW]) {
+template <class T, class Src>
+__device__ __forceinline__ void dw_patch(const Src* halo,
+                                         const float (&tap)[49], int ry,
+                                         int rx, int lane,
+                                         float (&acc)[T::RH][T::RW]) {
 #pragma unroll
   for (int o = 0; o < T::RH; ++o)
 #pragma unroll
@@ -146,7 +266,7 @@ __device__ __forceinline__ void dw_patch(const float* halo, const float (&tap)[4
     float v[T::RW + 6];
 #pragma unroll
     for (int j = 0; j < T::RW + 6; ++j)
-      v[j] = halo[((ry + r) * T::HW + rx + j) * 32 + lane];
+      v[j] = ld1(halo + ((ry + r) * T::HW + rx + j) * kDwChunk + lane);
 #pragma unroll
     for (int ky = 0; ky < 7; ++ky) {
       const int o = r - ky;
@@ -160,131 +280,167 @@ __device__ __forceinline__ void dw_patch(const float* halo, const float (&tap)[4
   }
 }
 
-// stage channels [c0, c0 + 32) of the tile's halo, zero outside the image
-// (4 channels a load: 16 bytes of f32, 8 of bf16)
-template <class T, class IO>
-__device__ __forceinline__ void dw_stage(float* halo,
-                                         const IO* __restrict__ src,
-                                         int64_t b, int y0, int x0, int H,
-                                         int W, int C, int c0) {
-  for (int i = threadIdx.x; i < T::HH * T::HW * 8; i += kDwThreads) {
-    const int px = i / 8, q = i % 8;
-    const int hy = y0 - 3 + px / T::HW, hx = x0 - 3 + px % T::HW;
-    float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    if (hy >= 0 && hy < H && hx >= 0 && hx < W)
-      v = ld4(src + ((b * H + hy) * (int64_t)W + hx) * C + c0 + 4 * q);
-    reinterpret_cast<float4*>(halo)[i] = v;
+// the tile's tokens inside the image, 8 channels (c0 + g ..) a thread:
+// f(token index in the tile, token index in the tensor, g)
+template <class T, class F>
+__device__ __forceinline__ void dw_each8(const DwParams& p, int x0, int y0,
+                                         int b, F f) {
+  for (int i = threadIdx.x; i < T::T * (kDwChunk / 8); i += kDwThreads) {
+    const int t = i / (kDwChunk / 8), g = 8 * (i % (kDwChunk / 8));
+    const int hh = y0 + t / T::TW, ww = x0 + t % T::TW;
+    if (hh < p.H && ww < p.W)
+      f(t, ((int64_t)b * p.H + hh) * p.W + ww, g);
   }
 }
 
-// u = LN(dwconv(x) + dwb) * ls + lb as bf16; for the backward also xhat
-// (f32), inv = 1/sqrt(var + eps) per token and gms = bf16(gamma * dy).
-// x and dy are IO (f32 or bf16). Grid (ceil(W / TW), ceil(H / TH), B).
-template <class T, class IO>
-__global__ void __launch_bounds__(kDwThreads)
-dwconv_ln_kernel(const IO* __restrict__ x, const float* __restrict__ dwt,
-                 const float* __restrict__ dwb, const float* __restrict__ ls,
-                 const float* __restrict__ lb, bf16* __restrict__ u,
-                 float* __restrict__ xhat, float* __restrict__ inv_out,
-                 const IO* __restrict__ dy,
-                 const float* __restrict__ gamma, bf16* __restrict__ gms,
-                 int H, int W, int C) {
-  extern __shared__ float4 dw_smem[];
-  float* halo = reinterpret_cast<float*>(dw_smem);
-  float* ys = halo + T::kHalo;  // [TH * TW][C]
-  const int x0 = blockIdx.x * T::TW, y0 = blockIdx.y * T::TH;
-  const int64_t b = blockIdx.z;
+template <int L>
+__device__ __forceinline__ float group_sum(float v) {
+#pragma unroll
+  for (int o = L / 2; o > 0; o >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// u = LN(dwconv(x) + dwb) * ls + lb as bf16; for the backward (BWD) also
+// xhat (f32), inv = 1/sqrt(var + eps) per token and gms = bf16(gamma *
+// dy). x and dy are IO (f32 or bf16). Grid: min(tiles, the SMs' blocks).
+template <class T, class IO, bool BWD>
+__global__ void __launch_bounds__(kDwThreads, kDwBlocksPerSm)
+    dwconv_ln_kernel(const __grid_constant__ DwParams p) {
+  using St = DwStage<T, IO, IO, BWD>;
+  const DwSmem s = dw_smem();
+  const int C = p.C;
+  const DwWalk w{C / kDwChunk};
+  float* ys = reinterpret_cast<float*>(s.sm + p.stages * St::kBytes);
+  const uint32_t bars = s.stages + p.stages * St::kBytes + T::T * C * 4;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int ry = (warp / T::WC) * T::RH, rx = (warp % T::WC) * T::RW;
-  for (int c0 = 0; c0 < C; c0 += 32) {
-    __syncthreads();  // the last chunk's halo is read
-    dw_stage<T, IO>(halo, x, b, y0, x0, H, W, C, c0);
-    __syncthreads();
-    const int c = c0 + lane;
-    float tap[49];
+  dw_start<T, St>(p, w, s.stages, bars);
+  int n = 0;  // chunks of the walk done
+  for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
+    int x0, y0, b;
+    dw_origin(p, tile, x0, y0, b, T::TW, T::TH);
+    for (int k = 0; k < w.chunks; ++k, ++n) {
+      const int st = n % p.stages, c0 = k * kDwChunk, c = c0 + lane;
+      mbar_wait(bars + 8 * st, (n / p.stages) & 1);
+      const unsigned char* stage = s.sm + st * St::kBytes;
+      if constexpr (BWD) {
+        const IO* dyt = reinterpret_cast<const IO*>(stage + St::kDy);
+        dw_each8<T>(p, x0, y0, b, [&](int t, int64_t tok, int g) {
+          float d[8], gm[8];
+          ld8(dyt + t * kDwChunk + g, d);
+          ld8(p.gamma + c0 + g, gm);
 #pragma unroll
-    for (int i = 0; i < 49; ++i) tap[i] = __ldg(dwt + i * C + c);
-    float acc[T::RH][T::RW];
-    dw_patch<T>(halo, tap, ry, rx, lane, acc);
-    const float bias = __ldg(dwb + c);
+          for (int i = 0; i < 8; ++i) d[i] = gm[i] * d[i];
+          st8(p.gms + tok * C + c0 + g, d);
+        });
+      }
+      const float* taps = reinterpret_cast<const float*>(stage + St::kHalo);
+      float tap[49];
 #pragma unroll
-    for (int o = 0; o < T::RH; ++o)
+      for (int i = 0; i < 49; ++i) tap[i] = taps[i * kDwChunk + lane];
+      float acc[T::RH][T::RW];
+      dw_patch<T>(reinterpret_cast<const IO*>(stage), tap, ry, rx, lane,
+                  acc);
+      const float bias = __ldg(p.dwb + c);
 #pragma unroll
-      for (int t = 0; t < T::RW; ++t)
-        ys[((ry + o) * T::TW + rx + t) * C + c] = acc[o][t] + bias;
-  }
-  __syncthreads();
-  for (int t = warp; t < T::TH * T::TW; t += kDwThreads / 32) {
-    const int hh = y0 + t / T::TW, ww = x0 + t % T::TW;
-    if (hh >= H || ww >= W) continue;
-    const float* yr = ys + t * C;
-    float s = 0.0f;
-    for (int c = lane; c < C; c += 32) s += yr[c];
-    const float mean = warp_sum(s) / C;
-    float q = 0.0f;
-    for (int c = lane; c < C; c += 32) {
-      const float d = yr[c] - mean;
-      q += d * d;
+      for (int o = 0; o < T::RH; ++o)
+#pragma unroll
+        for (int t = 0; t < T::RW; ++t)
+          ys[((ry + o) * T::TW + rx + t) * C + c] = acc[o][t] + bias;
+      __syncthreads();  // stage st is read; after the last chunk, y is whole
+      if (threadIdx.x == 0)
+        dw_issue<T, St>(p, w, s.stages, bars, n + p.stages);
     }
-    const float inv = rsqrtf(warp_sum(q) / C + 1e-6f);
-    const int64_t tok = (b * H + hh) * (int64_t)W + ww;
-    for (int c = lane; c < C; c += 32) {
-      const float xh = (yr[c] - mean) * inv;
-      u[tok * C + c] = __float2bfloat16(xh * ls[c] + lb[c]);
-      if (xhat) xhat[tok * C + c] = xh;
-      if (gms)
-        gms[tok * C + c] = __float2bfloat16(gamma[c] * ld1(dy + tok * C + c));
+    // the LayerNorm: L lanes a token, each all lanes of a warp together
+    constexpr int L = T::L;
+    const int q = threadIdx.x % L, nv = C / (4 * L);
+    for (int t = threadIdx.x / L; t < T::T; t += kDwThreads / L) {
+      const float4* yr = reinterpret_cast<const float4*>(ys + t * C);
+      float sum = 0.0f;
+      for (int i = 0; i < nv; ++i) {
+        const float4 v = yr[q + L * i];
+        sum += (v.x + v.y) + (v.z + v.w);
+      }
+      const float mean = group_sum<L>(sum) / C;
+      float sq = 0.0f;
+      for (int i = 0; i < nv; ++i) {
+        const float4 v = yr[q + L * i];
+        const float a = v.x - mean, bb = v.y - mean, cc = v.z - mean,
+                    dd = v.w - mean;
+        sq += (a * a + bb * bb) + (cc * cc + dd * dd);
+      }
+      const float inv = rsqrtf(group_sum<L>(sq) / C + 1e-6f);
+      const int hh = y0 + t / T::TW, ww = x0 + t % T::TW;
+      if (hh >= p.H || ww >= p.W) continue;
+      const int64_t tok = ((int64_t)b * p.H + hh) * p.W + ww;
+      for (int i = 0; i < nv; ++i) {
+        const int c = 4 * (q + L * i);
+        const float4 v = yr[q + L * i];
+        const float4 xh =
+            make_float4((v.x - mean) * inv, (v.y - mean) * inv,
+                        (v.z - mean) * inv, (v.w - mean) * inv);
+        const float4 g = __ldg(reinterpret_cast<const float4*>(p.ls + c));
+        const float4 h = __ldg(reinterpret_cast<const float4*>(p.lb + c));
+        st4(p.u + tok * C + c,
+            make_float4(xh.x * g.x + h.x, xh.y * g.y + h.y,
+                        xh.z * g.z + h.z, xh.w * g.w + h.w));
+        if constexpr (BWD) st4(p.xhat + tok * C + c, xh);
+      }
+      if (BWD && q == 0) p.inv[tok] = inv;
     }
-    if (inv_out && lane == 0) inv_out[tok] = inv;
+    __syncthreads();  // y is read: the next tile may write it
   }
 }
 
-// dx = dy + corr7x7(dyconv, flipped taps), in row segments: a block takes
-// kDwTokens tokens of one row and every channel, a thread one channel
-// with its window of kDwTokens + 6 inputs per row in registers. With no
-// LayerNorm to hold a tile together, small blocks keep more loads in
-// flight: the staged tile form of dwconv_ln_kernel measured slower for
-// this pass at every stage on the H100. dy and dx are IO (f32 or bf16;
-// once a token and channel, outside the window loop). Grid (ceil(W /
-// kDwTokens), H, B).
-template <class IO>
-__global__ void __launch_bounds__(kDwRowThreads)
-dwcorr_kernel(const float* __restrict__ dyconv, const float* __restrict__ dwt,
-              const IO* __restrict__ dy, IO* __restrict__ dx, int H,
-              int W, int C) {
-  const int w0 = blockIdx.x * kDwTokens;
-  const int h = blockIdx.y;
-  const int64_t b = blockIdx.z;
-  const int ntok = min(kDwTokens, W - w0);
-  for (int c = threadIdx.x; c < C; c += blockDim.x) {
-    float acc[kDwTokens];
+// dx = dy + corr7x7(dyconv, flipped taps). dyconv is f32; dy and dx are
+// IO. Grid: min(tiles, the SMs' blocks).
+template <class T, class IO>
+__global__ void __launch_bounds__(kDwThreads, kDwBlocksPerSm)
+    dwcorr_kernel(const __grid_constant__ DwParams p) {
+  using St = DwStage<T, float, IO, true>;
+  const DwSmem s = dw_smem();
+  const int C = p.C;
+  const DwWalk w{C / kDwChunk};
+  float* cs = reinterpret_cast<float*>(s.sm + p.stages * St::kBytes);
+  const uint32_t bars =
+      s.stages + p.stages * St::kBytes + T::T * kDwChunk * 4;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int ry = (warp / T::WC) * T::RH, rx = (warp % T::WC) * T::RW;
+  dw_start<T, St>(p, w, s.stages, bars);
+  int n = 0;
+  for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
+    int x0, y0, b;
+    dw_origin(p, tile, x0, y0, b, T::TW, T::TH);
+    for (int k = 0; k < w.chunks; ++k, ++n) {
+      const int st = n % p.stages, c0 = k * kDwChunk;
+      mbar_wait(bars + 8 * st, (n / p.stages) & 1);
+      const unsigned char* stage = s.sm + st * St::kBytes;
+      const float* taps = reinterpret_cast<const float*>(stage + St::kHalo);
+      float tap[49];
 #pragma unroll
-    for (int t = 0; t < kDwTokens; ++t) acc[t] = 0.0f;
-    for (int ky = 0; ky < 7; ++ky) {
-      const int hh = h + ky - 3;
-      if (hh < 0 || hh >= H) continue;
-      const float* row = dyconv + ((b * H + hh) * (int64_t)W) * C + c;
-      float v[kDwTokens + 6];
+      for (int i = 0; i < 49; ++i) tap[i] = taps[(48 - i) * kDwChunk + lane];
+      float acc[T::RH][T::RW];
+      dw_patch<T>(reinterpret_cast<const float*>(stage), tap, ry, rx, lane,
+                  acc);
 #pragma unroll
-      for (int j = 0; j < kDwTokens + 6; ++j) {
-        const int ww = w0 + j - 3;
-        v[j] = (ww >= 0 && ww < W) ? row[(int64_t)ww * C] : 0.0f;
-      }
+      for (int o = 0; o < T::RH; ++o)
 #pragma unroll
-      for (int kx = 0; kx < 7; ++kx) {
-        const float wt = dwt[((6 - ky) * 7 + (6 - kx)) * C + c];
+        for (int t = 0; t < T::RW; ++t)
+          cs[((ry + o) * T::TW + rx + t) * kDwChunk + lane] = acc[o][t];
+      __syncthreads();
+      const IO* dyt = reinterpret_cast<const IO*>(stage + St::kDy);
+      dw_each8<T>(p, x0, y0, b, [&](int t, int64_t tok, int g) {
+        float d[8], v[8];
+        ld8(dyt + t * kDwChunk + g, d);
+        ld8(cs + t * kDwChunk + g, v);
 #pragma unroll
-        for (int t = 0; t < kDwTokens; ++t)
-          acc[t] = fmaf(v[t + kx], wt, acc[t]);
-      }
-    }
-    const int64_t tok0 = (b * H + h) * (int64_t)W + w0;
-#pragma unroll
-    for (int t = 0; t < kDwTokens; ++t) {
-      if (t < ntok) {
-        const int64_t i = (tok0 + t) * C + c;
-        st1(dx + i, ld1(dy + i) + acc[t]);
-      }
+        for (int i = 0; i < 8; ++i) d[i] = d[i] + v[i];
+        st8(static_cast<IO*>(p.dx) + tok * C + c0 + g, d);
+      });
+      __syncthreads();  // stage st and the correlation tile are read
+      if (threadIdx.x == 0)
+        dw_issue<T, St>(p, w, s.stages, bars, n + p.stages);
     }
   }
 }
@@ -297,33 +453,119 @@ dwcorr_kernel(const float* __restrict__ dyconv, const float* __restrict__ dwt,
 // the depthwise tile for each width: TH x TW tokens (TH TW C <= 12288
 // floats of y), RH x RW outputs a thread
 #define ROBSEG_DW_TILES(X)                                      \
-  X(96, 8, 16, 8, 2) X(128, 8, 8, 8, 1) X(192, 8, 8, 4, 2)      \
+  X(96, 8, 8, 4, 2) X(128, 8, 8, 4, 2) X(192, 4, 8, 2, 2)       \
   X(256, 8, 4, 4, 1) X(384, 8, 4, 4, 1) X(512, 4, 4, 2, 1)      \
   X(768, 4, 4, 2, 1) X(1024, 4, 2, 1, 1)
 
-template <class T, class K, class... A>
-int dw_launch(K kernel, bool ln, int B, int H, int W, int C,
-              cudaStream_t stream, A... args) {
-  const size_t smem = T::smem(C, ln);
+template <class V>
+CUtensorMapDataType map_type() {
+  return sizeof(V) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                        : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+}
+
+// the maps of a depthwise launch (no swizzle: the boxes land dense): the
+// conv's input, boxes of the halo; the taps, a chunk's 49 a box; and (dy
+// non-null) dy, boxes of the tile
+template <class T, class Src, class IO>
+int dw_maps(DwParams& p, const Src* src, const IO* dy, int B) {
+  const cuuint64_t dims[4] = {(cuuint64_t)p.C, (cuuint64_t)p.W,
+                              (cuuint64_t)p.H, (cuuint64_t)B};
+  const cuuint32_t halo[4] = {kDwChunk, T::HW, T::HH, 1};
+  int e = encode(&p.src, src, 4, dims, halo, map_type<Src>(),
+                 CU_TENSOR_MAP_SWIZZLE_NONE);
+  const cuuint64_t tdims[2] = {(cuuint64_t)p.C, 49};
+  const cuuint32_t tbox[2] = {kDwChunk, 49};
+  if (!e)
+    e = encode(&p.taps, p.dwt, 2, tdims, tbox, CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+               CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (!e && dy) {
+    const cuuint32_t box[4] = {kDwChunk, T::TW, T::TH, 1};
+    e = encode(&p.dy, dy, 4, dims, box, map_type<IO>(),
+               CU_TENSOR_MAP_SWIZZLE_NONE);
+  }
+  return e;
+}
+
+// the ring's depth (2..kDwMaxStages) that two blocks' shared memory an SM
+// leave room for beside `tail` bytes, and the block's bytes with it
+template <class St>
+int dw_stages(size_t tail) {
+  const long room = kDwSmemBudget - 128 - (long)tail;
+  const long s = room / (long)(St::kBytes + 8);
+  return (int)(s < kDwMaxStages ? s : kDwMaxStages);
+}
+template <class St>
+size_t dw_smem_bytes(int stages, size_t tail) {
+  return 128 + stages * St::kBytes + tail + 8 * stages;
+}
+
+template <class T, class St, class K>
+int dw_launch(K kernel, DwParams& p, size_t tail, int B, int sms,
+              cudaStream_t stream) {
+  p.stages = dw_stages<St>(tail);
+  if (p.stages < 2) return (int)cudaErrorInvalidValue;
+  p.tiles_x = (p.W + T::TW - 1) / T::TW;
+  p.tiles_y = (p.H + T::TH - 1) / T::TH;
+  const int64_t tiles = (int64_t)p.tiles_x * p.tiles_y * B;
+  if (tiles > INT32_MAX / 2) return (int)cudaErrorInvalidValue;
+  p.tiles = (int)tiles;
+  const size_t smem = dw_smem_bytes<St>(p.stages, tail);
   const cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((W + T::TW - 1) / T::TW, (H + T::TH - 1) / T::TH, B);
-  kernel<<<grid, kDwThreads, smem, stream>>>(args..., H, W, C);
+  const int blocks = kDwBlocksPerSm * sms;
+  kernel<<<p.tiles < blocks ? p.tiles : blocks, kDwThreads, smem, stream>>>(
+      p);
   return (int)cudaGetLastError();
 }
 
+template <class T, class IO>
+int dwconv_ln_tile(DwParams& p, const IO* x, const IO* dy, int B, int sms,
+                   cudaStream_t stream) {
+  const int e = dw_maps<T>(p, x, dy, B);
+  if (e) return e;
+  const size_t ys = (size_t)T::T * p.C * 4;
+  if (dy)
+    return dw_launch<T, DwStage<T, IO, IO, true>>(
+        dwconv_ln_kernel<T, IO, true>, p, ys, B, sms, stream);
+  return dw_launch<T, DwStage<T, IO, IO, false>>(
+      dwconv_ln_kernel<T, IO, false>, p, ys, B, sms, stream);
+}
+
+template <class T, class IO>
+int dwcorr_tile(DwParams& p, const float* dyconv, const IO* dy, int B,
+                int sms, cudaStream_t stream) {
+  const int e = dw_maps<T>(p, dyconv, dy, B);
+  if (e) return e;
+  return dw_launch<T, DwStage<T, float, IO, true>>(
+      dwcorr_kernel<T, IO>, p, T::T * kDwChunk * 4, B, sms, stream);
+}
+
+// the forward's pass (dy null: u only) or the backward's (xhat, inv, gms
+// too)
 template <class IO>
 int dwconv_ln(const IO* x, const float* dwt, const float* dwb,
               const float* ls, const float* lb, bf16* u, float* xhat,
               float* inv, const IO* dy, const float* gamma, bf16* gms,
-              int B, int H, int W, int C, cudaStream_t stream) {
+              int B, int H, int W, int C, int sms, cudaStream_t stream) {
+  DwParams p = {};
+  p.dwt = dwt;
+  p.dwb = dwb;
+  p.ls = ls;
+  p.lb = lb;
+  p.gamma = gamma;
+  p.u = u;
+  p.gms = gms;
+  p.xhat = xhat;
+  p.inv = inv;
+  p.H = H;
+  p.W = W;
+  p.C = C;
   switch (C) {
-#define X(WD, TH, TW, RH, RW)                                          \
-  case WD:                                                             \
-    return dw_launch<DwTile<TH, TW, RH, RW>>(                          \
-        dwconv_ln_kernel<DwTile<TH, TW, RH, RW>, IO>, true, B, H, W, C, \
-        stream, x, dwt, dwb, ls, lb, u, xhat, inv, dy, gamma, gms);
+#define X(WD, TH, TW, RH, RW) \
+  case WD:                    \
+    return dwconv_ln_tile<DwTile<TH, TW, RH, RW>, IO>(p, x, dy, B, sms, \
+                                                      stream);
     ROBSEG_DW_TILES(X)
 #undef X
     default: return -1;
@@ -332,11 +574,22 @@ int dwconv_ln(const IO* x, const float* dwt, const float* dwb,
 
 template <class IO>
 int dwcorr(const float* dyconv, const float* dwt, const IO* dy, IO* dx,
-           int B, int H, int W, int C, cudaStream_t stream) {
-  dim3 grid((W + kDwTokens - 1) / kDwTokens, H, B);
-  dwcorr_kernel<IO><<<grid, kDwRowThreads, 0, stream>>>(dyconv, dwt, dy, dx,
-                                                        H, W, C);
-  return (int)cudaGetLastError();
+           int B, int H, int W, int C, int sms, cudaStream_t stream) {
+  DwParams p = {};
+  p.dwt = dwt;
+  p.dx = dx;
+  p.H = H;
+  p.W = W;
+  p.C = C;
+  switch (C) {
+#define X(WD, TH, TW, RH, RW) \
+  case WD:                    \
+    return dwcorr_tile<DwTile<TH, TW, RH, RW>, IO>(p, dyconv, dy, B, sms, \
+                                                   stream);
+    ROBSEG_DW_TILES(X)
+#undef X
+    default: return -1;
+  }
 }
 
 
@@ -423,7 +676,7 @@ int block_fwd(const IO* x, const void* dw, const void* dwb, const void* ls,
   int e = pack(pk, s);
   if (!e)
     e = dwconv_ln<IO>(x, sc.dwt, v.dwb, v.ls, v.lb, sc.u, nullptr, nullptr,
-                      nullptr, nullptr, nullptr, B, H, W, C, s);
+                      nullptr, nullptr, nullptr, B, H, W, C, sms, s);
   if (e) return e;
   if (C <= kFusedMaxC) {
     FusedParams p = {};
@@ -481,7 +734,7 @@ int block_dx(const IO* x, const IO* dy, const void* dw, const void* dwb,
   int e = pack(pk, s);
   if (!e)
     e = dwconv_ln<IO>(x, sc.dwt, v.dwb, v.ls, v.lb, sc.u, sc.xhat, sc.inv,
-                      dy, v.gamma, sc.gms, B, H, W, C, s);
+                      dy, v.gamma, sc.gms, B, H, W, C, sms, s);
   if (e) return e;
   if (C <= kFusedMaxC) {
     FusedParams p = {};
@@ -520,7 +773,7 @@ int block_dx(const IO* x, const IO* dy, const void* dw, const void* dwb,
     e = ln_bwd(sc.dyconv, sc.xhat, sc.inv, v.ls, n, C, s);
     if (e) return e;
   }
-  return dwcorr<IO>(sc.dyconv, sc.dwt, dy, dx, B, H, W, C, s);
+  return dwcorr<IO>(sc.dyconv, sc.dwt, dy, dx, B, H, W, C, sms, s);
 }
 
 }  // namespace

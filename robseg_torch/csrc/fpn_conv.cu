@@ -55,10 +55,24 @@
 //   N tile) with N innermost, statically strided over the blocks, so the
 //   blocks that run together read the same activation box from L2; the
 //   producer loads the next tile's stages while the consumers write this
-//   tile's outputs straight from their accumulator registers (float2 or
-//   bf16x2 stores, 32 or 16 contiguous bytes per row and warp; pixels
-//   outside the image and channels >= n masked). The output type is the
-//   kernel's template parameter.
+//   tile's outputs. The output type is the kernel's template parameter.
+// - Epilogue, bf16 outputs: each consumer warp converts its 16 rows of
+//   the accumulator to bf16 a 64-channel box at a time into one of two
+//   2 KB staging buffers of its own (128-byte swizzle, the layout a TMA
+//   load of the same box gives: conflict-free 4-byte writes from the
+//   accumulator layout), and its lane 0 issues a TMA store of the box
+//   (`cp.async.bulk.tensor`, one {n, W, H, B} map per output slot, box
+//   64 channels x 16 pixels). No barrier joins the warps: each waits for
+//   its own store to have read a buffer only before it writes that buffer
+//   again, and goes on to the next box, and to the next tile's K-loop,
+//   while the stores drain. TMA clips what lies outside the tensor, so
+//   nothing is masked. (Stored straight from the accumulator layout, a
+//   warp's bf16x2 stores wrote 16 bytes of each of 8 rows, half a sector;
+//   a warpgroup's 64 x 64 box behind two named barriers a box cost 0.2 ms
+//   more a call than this at the head's shape.) float32 outputs are
+//   stored straight from the accumulator registers (float2, 32 contiguous
+//   bytes per row and warp; pixels outside the image and channels >= n
+//   masked).
 // The descriptors are built on the host in robseg_fpn_fwd / robseg_fpn_dx
 // (cuTensorMapEncodeTiled, looked up at run time through the CUDA runtime,
 // so the link needs no -lcuda) and passed as a __grid_constant__
@@ -85,13 +99,24 @@ constexpr int kThreads = 128 * (kConsumers + 1);  // + the producer's
 constexpr uint32_t kABytes = kBM * kBK * 2;
 constexpr uint32_t kBBytes = kBN * kBK * 2;
 constexpr uint32_t kStageBytes = kABytes + kBBytes;
-// stages (1024-byte aligned for the 128-byte swizzle) and 2 x kStages
-// mbarriers
-constexpr size_t kSmem = 1024 + kStages * kStageBytes + 16 * kStages;
+// the bf16 epilogue's staging: two 16-pixel x 64-channel boxes a consumer
+// warp
+constexpr int kOutC = 64, kOutRows = 16;
+constexpr uint32_t kOutBytes = kOutRows * kOutC * 2;
+constexpr uint32_t kStagingBytes = kConsumers * 4 * 2 * kOutBytes;  // 32 KB
+// stages (1024-byte aligned for the 128-byte swizzle), the staging
+// buffers (bf16 outputs), and 2 x kStages mbarriers
+template <class Out>
+constexpr size_t smem_bytes() {
+  return 1024 + kStages * kStageBytes +
+         (sizeof(Out) == 2 ? kStagingBytes : 0) + 16 * kStages;
+}
 
 struct Params {
   CUtensorMap a[4]; // bf16 map {ca, W, H, B} per K-source, 128-byte swizzle
   CUtensorMap b;    // bf16 panels {ca, n, 9 * panels}, 128-byte swizzle
+  CUtensorMap o[4]; // bf16 outputs: map {n, W, H, B} per slot, 128-byte
+                    // swizzle, box {64, min(box_w, 16), 16 / that, 1}
   void* out[4];     // (B, H, W, n) per output slot, f32 or bf16
   const float* s;   // forward epilogue relu(acc * s + t); null: acc as is
   const float* t;
@@ -147,11 +172,113 @@ __device__ __forceinline__ void producer(const Params& p, uint32_t base,
   }
 }
 
+// bf16 epilogue: the warp's 16 rows of the accumulator out through TMA
+// stores, one 64-channel box at a time into staging buffer (boxes & 1) of
+// the warp's two; `boxes` counts the boxes the warp has issued
+__device__ __forceinline__ void store_tile_tma(const Params& p, const Tile& tl,
+                                               const float (&d)[128],
+                                               uint32_t staging, int wg,
+                                               int& boxes) {
+  const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+  // the warp's rows are pixels r0 .. r0 + 15 of the tile: a box of
+  // min(box_w, 16) x (16 / that) pixels; its row r is the warp's row r
+  const int r0 = wg * 64 + warp * kOutRows;
+  const int bx = tl.x0 + (r0 & ((1 << p.box_w_log2) - 1));
+  const int by = tl.y0 + (r0 >> p.box_w_log2);
+#pragma unroll
+  for (int q = 0; q < 256 / kOutC; ++q) {
+    const int c0 = tl.n0 + q * kOutC;
+    if (c0 < p.n) {  // the same for the whole warp
+      const uint32_t buf = staging + (boxes & 1) * kOutBytes;
+      // the store issued two boxes ago read this buffer
+      if (lane == 0) bulk_wait_read<1>();
+      __syncwarp();
+#pragma unroll
+      for (int jj = 0; jj < kOutC / 8; ++jj) {
+        const int j = q * (kOutC / 8) + jj;
+        const int col = c0 + 8 * jj + 2 * (lane % 4);
+        float2 sc = make_float2(1.0f, 1.0f), sh = make_float2(0.0f, 0.0f);
+        if (p.s && col < p.n) {  // n is even: col + 1 < n too
+          sc = __ldg(reinterpret_cast<const float2*>(p.s + col));
+          sh = __ldg(reinterpret_cast<const float2*>(p.t + col));
+        }
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int r = lane / 4 + 8 * hh;
+          float2 v = make_float2(d[4 * j + 2 * hh], d[4 * j + 2 * hh + 1]);
+          if (p.s) {  // as store_tile_regs
+            v.x = fmaxf(fmaf(v.x, sc.x, sh.x), 0.0f);
+            v.y = fmaxf(fmaf(v.y, sc.y, sh.y), 0.0f);
+          }
+          const __nv_bfloat162 h = __floats2bfloat162_rn(v.x, v.y);
+          // 16-byte chunk jj of row r sits at chunk jj ^ (r % 8)
+          st_shared_b32(buf + r * 128 + ((jj ^ (r & 7)) << 4) +
+                            4 * (lane % 4),
+                        *reinterpret_cast<const uint32_t*>(&h));
+        }
+      }
+      fence_async_shared();
+      __syncwarp();
+      if (lane == 0) {
+        tma_store_4d(&p.o[tl.slot], buf, c0, bx, by, tl.b);
+        bulk_commit();
+      }
+      ++boxes;
+    }
+  }
+}
+
+// float32 epilogue: straight from the accumulator registers; this thread
+// holds rows r and r + 8 of the warpgroup's 64, columns 8j + 2 (lane % 4)
+// + {0, 1} for j < 32
+__device__ __forceinline__ void store_tile_regs(const Params& p,
+                                                const Tile& tl,
+                                                const float (&d)[128],
+                                                int wg) {
+  const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+  float* out = static_cast<float*>(p.out[tl.slot]);
+  int64_t off[2];
+  bool ok[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = wg * 64 + warp * 16 + lane / 4 + 8 * hh;
+    const int x = tl.x0 + (r & ((1 << p.box_w_log2) - 1));
+    const int y = tl.y0 + (r >> p.box_w_log2);
+    ok[hh] = x < p.w && y < p.h;
+    off[hh] = (((int64_t)tl.b * p.h + y) * p.w + x) * p.n;
+  }
+  const int col0 = tl.n0 + 2 * (lane % 4);
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    const int col = col0 + 8 * j;
+    if (col < p.n) {  // n is even: col + 1 < n too
+      float2 sc = make_float2(1.0f, 1.0f), sh = make_float2(0.0f, 0.0f);
+      if (p.s) {
+        sc = __ldg(reinterpret_cast<const float2*>(p.s + col));
+        sh = __ldg(reinterpret_cast<const float2*>(p.t + col));
+      }
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        float2 v = make_float2(d[4 * j + 2 * hh], d[4 * j + 2 * hh + 1]);
+        if (p.s) {
+          v.x = fmaxf(fmaf(v.x, sc.x, sh.x), 0.0f);
+          v.y = fmaxf(fmaf(v.y, sc.y, sh.y), 0.0f);
+        }
+        if (ok[hh]) st2(out + off[hh] + col, v);
+      }
+    }
+  }
+}
+
 template <class Out>
 __device__ __forceinline__ void consumer(const Params& p, uint32_t base,
                                          uint32_t bars, int wg) {
-  const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+  constexpr bool kTma = sizeof(Out) == 2;
+  const int lane = threadIdx.x % 32;
   const int ksteps = p.k_src * 9 * p.kc;
+  const uint32_t staging = base + kStages * kStageBytes +
+                           (threadIdx.x / 32) * 2 * kOutBytes;
+  int boxes = 0;
   float d[128];
 #pragma unroll
   for (int i = 0; i < 128; ++i) d[i] = 0.0f;
@@ -180,41 +307,13 @@ __device__ __forceinline__ void consumer(const Params& p, uint32_t base,
     fence_acc(d);
     if (lane == 0) mbar_arrive(bars + 8 * (kStages + (it - 1) % kStages));
 
-    // epilogue: this thread holds rows r and r + 8 of the warpgroup's 64,
-    // columns 8j + 2 (lane % 4) + {0, 1} for j < 32
-    Out* out = static_cast<Out*>(p.out[tl.slot]);
-    int64_t off[2];
-    bool ok[2];
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int r = wg * 64 + warp * 16 + lane / 4 + 8 * hh;
-      const int x = tl.x0 + (r & ((1 << p.box_w_log2) - 1));
-      const int y = tl.y0 + (r >> p.box_w_log2);
-      ok[hh] = x < p.w && y < p.h;
-      off[hh] = (((int64_t)tl.b * p.h + y) * p.w + x) * p.n;
-    }
-    const int col0 = tl.n0 + 2 * (lane % 4);
-#pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      const int col = col0 + 8 * j;
-      if (col < p.n) {  // n is even: col + 1 < n too
-        float2 sc = make_float2(1.0f, 1.0f), sh = make_float2(0.0f, 0.0f);
-        if (p.s) {
-          sc = __ldg(reinterpret_cast<const float2*>(p.s + col));
-          sh = __ldg(reinterpret_cast<const float2*>(p.t + col));
-        }
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          float2 v = make_float2(d[4 * j + 2 * hh], d[4 * j + 2 * hh + 1]);
-          if (p.s) {
-            v.x = fmaxf(v.x * sc.x + sh.x, 0.0f);
-            v.y = fmaxf(v.y * sc.y + sh.y, 0.0f);
-          }
-          if (ok[hh]) st2(out + off[hh] + col, v);
-        }
-      }
-    }
+    if constexpr (kTma)
+      store_tile_tma(p, tl, d, staging, wg, boxes);
+    else
+      store_tile_regs(p, tl, d, wg);
   }
+  // the staging buffers must outlive the stores that read them
+  if (kTma && lane == 0) bulk_wait<0>();
 }
 
 template <class Out>
@@ -226,7 +325,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   const uint32_t base = (raw + 1023) & ~1023u;
   // full[st] = bars + 8 st (the producer's arrival + the TMA bytes);
   // empty[st] = bars + 8 (kStages + st) (one arrival per consumer warp)
-  const uint32_t bars = base + kStages * kStageBytes;
+  const uint32_t bars = base + kStages * kStageBytes +
+                        (sizeof(Out) == 2 ? kStagingBytes : 0);
   if (threadIdx.x == 0) {
     for (int st = 0; st < kStages; ++st) {
       mbar_init(bars + 8 * st, 1);
@@ -262,17 +362,30 @@ __global__ void to_bf16_kernel(const float* __restrict__ x,
 // g = bf16(bf16(dy) * bf16(s)) where out > 0, else 0. The product of two
 // bf16 values is exact in f32, so rounding it once is the bf16 multiply.
 // dy and out are IO (f32, or bf16: then bf16(dy) is dy, and out > 0 has
-// the sign of the f32 output it rounds).
+// the sign of the f32 output it rounds). A thread takes 8 consecutive
+// channels a step (16-byte loads of bf16, two of f32; one 16-byte store of
+// g), vector v of nv = rows * co8 being channels 8 (v % co8) .. of row
+// v / co8 (32-bit indices: the wrapper bounds nv).
 template <class IO>
 __global__ void relu_grad_kernel(const IO* __restrict__ dy,
                                  const IO* __restrict__ out,
                                  const float* __restrict__ s,
-                                 bf16* __restrict__ g, int64_t n, int co) {
-  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < n;
-       i += (int64_t)gridDim.x * blockDim.x) {
-    const float d = __bfloat162float(__float2bfloat16(ld1(dy + i)));
-    const float sc = __bfloat162float(__float2bfloat16(s[i % co]));
-    g[i] = __float2bfloat16(ld1(out + i) > 0.0f ? d * sc : 0.0f);
+                                 bf16* __restrict__ g, uint32_t nv,
+                                 uint32_t co8) {
+  for (uint32_t v = blockIdx.x * blockDim.x + threadIdx.x; v < nv;
+       v += gridDim.x * blockDim.x) {
+    const uint32_t c = 8 * (v % co8);
+    float d[8], o[8], sc[8];
+    ld8(dy + 8 * (size_t)v, d);
+    ld8(out + 8 * (size_t)v, o);
+    ld8(s + c, sc);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const float db = __bfloat162float(__float2bfloat16(d[k]));
+      const float sb = __bfloat162float(__float2bfloat16(sc[k]));
+      d[k] = o[k] > 0.0f ? db * sb : 0.0f;
+    }
+    st8(g + 8 * (size_t)v, d);
   }
 }
 
@@ -306,6 +419,15 @@ int launch_gemm(Params& p, const void* const* act, const void* panels,
   const cuuint32_t bbox[3] = {kBK, kBN, 1};
   err = encode(&p.b, panels, 3, bdims, bbox);
   if (err) return err;
+  if (sizeof(Out) == 2) {
+    const cuuint64_t odims[4] = {(cuuint64_t)p.n, (cuuint64_t)p.w,
+                                 (cuuint64_t)p.h, (cuuint64_t)p.batch};
+    const cuuint32_t ow = box_w < kOutRows ? box_w : kOutRows;
+    const cuuint32_t obox[4] = {kOutC, ow, kOutRows / ow, 1};
+    for (int i = 0; i < slots && !err; ++i)
+      err = encode(&p.o[i], p.out[i], 4, odims, obox);
+    if (err) return err;
+  }
   p.box_w_log2 = 0;
   while ((1 << p.box_w_log2) < box_w) ++p.box_w_log2;
   p.tiles_x = (p.w + box_w - 1) / box_w;
@@ -316,11 +438,12 @@ int launch_gemm(Params& p, const void* const* act, const void* panels,
   if (tiles > INT32_MAX) return (int)cudaErrorInvalidValue;
   p.tiles = (int)tiles;
   p.kc = (ca + kBK - 1) / kBK;
+  constexpr size_t smem = smem_bytes<Out>();
   cudaError_t e = cudaFuncSetAttribute(
       fpn_gemm_kernel<Out>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kSmem);
+      (int)smem);
   if (e != cudaSuccess) return (int)e;
-  fpn_gemm_kernel<Out><<<blocks < p.tiles ? blocks : p.tiles, kThreads, kSmem,
+  fpn_gemm_kernel<Out><<<blocks < p.tiles ? blocks : p.tiles, kThreads, smem,
                          stream>>>(p);
   return (int)cudaGetLastError();
 }
@@ -329,9 +452,10 @@ template <class IO>
 int fpn_dx(const IO* dy, const IO* out, const void* wt, const float* s,
            void* g, void* const* dxs, int n_src, int B, int H, int W, int C,
            int Co, int box_w, int blocks, cudaStream_t st) {
-  const int64_t m = (int64_t)B * H * W;
-  relu_grad_kernel<IO><<<elementwise_blocks(m * Co), 256, 0, st>>>(
-      dy, out, s, (bf16*)g, m * Co, Co);
+  const int64_t nv = (int64_t)B * H * W * (Co / 8);
+  if (nv > INT32_MAX) return (int)cudaErrorInvalidValue;
+  relu_grad_kernel<IO><<<elementwise_blocks(nv), 256, 0, st>>>(
+      dy, out, s, (bf16*)g, (uint32_t)nv, (uint32_t)(Co / 8));
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   Params p = {};

@@ -23,6 +23,11 @@
 // - Accumulator layout (m64nN, f32): thread t of the warpgroup, warp w =
 //   t / 32, lane l, holds rows 16 w + l / 4 + 8 hh (hh = 0, 1) and columns
 //   8 j + 2 (l % 4) + {0, 1} (j < N / 8) in d[4 j + 2 hh + {0, 1}].
+// - TMA stores (tma_store_4d): threads write the box into shared memory in
+//   the layout a load of the same map gives, fence_async_shared, meet at a
+//   barrier (__syncwarp for a warp's box), then one thread issues the store
+//   and bulk_commit; before the buffer is written again that thread waits
+//   on bulk_wait_read.
 
 #pragma once
 
@@ -65,6 +70,47 @@ __device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
   const __nv_bfloat162* v = reinterpret_cast<const __nv_bfloat162*>(&u);
   const float2 a = __bfloat1622float2(v[0]), b = __bfloat1622float2(v[1]);
   return make_float4(a.x, a.y, b.x, b.y);
+}
+
+// eight consecutive values, 16-byte aligned, in global or shared memory:
+// two 16-byte accesses of float32, one of bf16
+__device__ __forceinline__ void ld8(const float* p, float (&v)[8]) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0];
+  const float4 b = reinterpret_cast<const float4*>(p)[1];
+  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+  v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+}
+__device__ __forceinline__ void ld8(const __nv_bfloat16* p, float (&v)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    v[2 * i] = f.x, v[2 * i + 1] = f.y;
+  }
+}
+__device__ __forceinline__ void st8(float* p, const float (&v)[8]) {
+  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
+  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+__device__ __forceinline__ void st8(__nv_bfloat16* p, const float (&v)[8]) {
+  uint4 u;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+  *reinterpret_cast<uint4*>(p) = u;
+}
+// four consecutive values, 8-byte (bf16) or 16-byte (float32) aligned
+__device__ __forceinline__ void st4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void st4(__nv_bfloat16* p, float4 v) {
+  uint2 u;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+  h[0] = __floats2bfloat162_rn(v.x, v.y);
+  h[1] = __floats2bfloat162_rn(v.z, v.w);
+  *reinterpret_cast<uint2*>(p) = u;
 }
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
@@ -133,6 +179,42 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
       : "memory");
 }
+// TMA store of a shared-memory box (the layout a load of the same map
+// writes) into the tensor; what lies outside the tensor is not written.
+// The copy joins the thread's current bulk group (bulk_commit).
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+// waits until at most N of this thread's bulk groups still read their
+// shared-memory source
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(N) : "memory");
+}
+// waits until at most N of this thread's bulk groups are unfinished
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;" ::"n"(N) : "memory");
+}
+// makes this thread's shared-memory writes visible to the TMA unit (the
+// async proxy); each writer fences before the barrier that precedes the
+// store
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+__device__ __forceinline__ void st_shared_b32(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;" ::"r"(addr), "r"(v) : "memory");
+}
+
 __device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];" ::"l"(
                    reinterpret_cast<uint64_t>(map))
@@ -385,11 +467,12 @@ EncodeTiledFn encode_tiled() {
 }
 
 // A dense bf16 (or float32) tensor (dims innermost first) under the
-// 128-byte swizzle, zero fill outside it. Returns 0, or -(CUresult)
-// (-1000: no entry point).
+// 128-byte swizzle (or `swizzle`), zero fill outside it. Returns 0, or
+// -(CUresult) (-1000: no entry point).
 int encode(CUtensorMap* map, const void* ptr, int rank,
            const cuuint64_t* dims, const cuuint32_t* box,
-           CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
+           CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+           CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return -1000;
   cuuint64_t strides[4];
@@ -402,8 +485,7 @@ int encode(CUtensorMap* map, const void* ptr, int rank,
   const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
   const CUresult r = fn(map, type, (cuuint32_t)rank, const_cast<void*>(ptr),
                         dims, strides, box, ones,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : -(int)r;

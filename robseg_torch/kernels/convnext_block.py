@@ -75,6 +75,16 @@ def convnext_block_dx_plain(x, dy, dw, dwb, ls, lb, w1, b1, w2, b2, gamma):
 # hidden chunks and K-steps, 128 x 128 output tiles in the two-GEMM form
 FUSED_MAX_C = 192
 TILE_M, TILE_N, HIDDEN_CHUNK = 128, 128, 64
+# the depthwise passes (ROBSEG_DW_TILES): persistent blocks of DW_WARPS
+# warps, at most DW_BLOCKS_PER_SM an SM, walk TH x TW tiles of one image,
+# DW_CHUNK channels at a time through a TMA ring of (TH + 6) x (TW + 6)
+# halo boxes, 2 to DW_MAX_STAGES deep within DW_SMEM_BUDGET bytes a block;
+# each warp an RH x RW patch of the tile
+DW_CHUNK, DW_WARPS, DW_MAX_STAGES = 32, 8, 4
+DW_BLOCKS_PER_SM, DW_SMEM_BUDGET = 2, 113 * 1024
+DW_TILES = {96: (8, 8, 4, 2), 128: (8, 8, 4, 2), 192: (4, 8, 2, 2),
+            256: (8, 4, 4, 1), 384: (8, 4, 4, 1), 512: (4, 4, 2, 1),
+            768: (4, 4, 2, 1), 1024: (4, 2, 1, 1)}
 
 
 def fused(c: int) -> bool:
@@ -118,8 +128,14 @@ def _operands(x, params, names, io_dtype):
                 f"convnext_block: {name} must be {p_dtype} (every parameter "
                 f"float32, or every one bfloat16) {shape} on {x.device}; got "
                 f"{t.dtype} {tuple(t.shape)} on {t.device}")
-        out.append(t if t.is_contiguous() else t.contiguous())
+        # the kernels read the float32 vectors 16 bytes at a time
+        out.append(_aligned(t.contiguous()))
     return lib, out, p_dtype == torch.bfloat16
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a 16-byte aligned copy of it (a view at an odd offset)."""
+    return t.clone() if t.data_ptr() % 16 else t
 
 
 _FWD_NAMES = ("dw", "dwb", "ls", "lb", "w1", "b1", "w2", "b2", "gamma")
@@ -149,7 +165,7 @@ def _dx(counter, io_dtype, x, dy, dw, dwb, ls, lb, w1, b1, w2, b2, gamma):
         x, (dw, dwb, ls, lb, w1, b1, w2, gamma), _DX_NAMES, io_dtype)
     if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
         raise ValueError("convnext_block_dx: dy must match x")
-    dy = dy.contiguous()
+    dy = _aligned(dy.contiguous())  # read through a TMA map
     b, h, w, c = x.shape
     scratch = torch.empty(lib.robseg_convnext_block_scratch(b, h, w, c, 1),
                           dtype=torch.uint8, device=x.device)

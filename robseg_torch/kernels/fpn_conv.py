@@ -74,8 +74,11 @@ def fpn_concat_conv_dx_plain(dy, out, w, s):
 
 
 # the kernel's tile (csrc/fpn_conv.cu): 128 pixels by 256 output channels,
-# K-steps of 64 channels through a 4-stage TMA ring
+# K-steps of 64 channels through a 4-stage TMA ring; bf16 outputs leave
+# through TMA stores of 64-channel x 16-pixel boxes, a consumer warp's 16
+# rows of the tile a box
 TILE_M, TILE_N, TILE_K, STAGES = 128, 256, 64, 4
+STORE_C, STORE_PIXELS = 64, 16
 
 
 def weight_panels(w: torch.Tensor, transpose: bool) -> torch.Tensor:
@@ -92,15 +95,19 @@ def plan(b: int, h: int, w: int, n: int, slots: int, sms: int) -> dict:
     128-pixel patch of one image by 256 output channels; ``box_w`` is the
     power of two in 8..128 that needs the fewest tiles (the widest on a
     tie). Tiles walk (output slot, image, patch row, patch column, N tile),
-    N innermost, strided over ``blocks = min(sms, tiles)`` blocks."""
+    N innermost, strided over ``blocks = min(sms, tiles)`` blocks.
+    ``store_box`` is the bf16 epilogue's TMA-store box (channels, pixels
+    across, rows): one consumer warp's 16 pixels of the tile."""
     def patches(bw):
         return -(-w // bw) * -(-h // (TILE_M // bw))
 
     box_w = min((128, 64, 32, 16, 8), key=patches)
     tiles = slots * b * patches(box_w) * -(-n // TILE_N)
     blocks = max(1, min(sms, tiles))
+    store_w = min(box_w, STORE_PIXELS)
     return {"box_w": box_w, "box_h": TILE_M // box_w, "tiles": tiles,
-            "blocks": blocks, "tiles_per_block": -(-tiles // blocks)}
+            "blocks": blocks, "tiles_per_block": -(-tiles // blocks),
+            "store_box": (STORE_C, store_w, STORE_PIXELS // store_w)}
 
 
 def _sms(device) -> int:

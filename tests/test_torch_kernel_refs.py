@@ -7,16 +7,21 @@ forward atol 5e-6 / rtol 1e-5 and its input gradient atol 1e-5 / rtol 1e-4
 the confusion histogram exact.
 
 What the block kernels compute is held here too: the block written in the
-kernels' order (csrc/convnext_block.cu: 128-token tiles zero-filled past
-the last token, 64-wide hidden chunks in the fused form at C <= 192, 128 x
-128 tiles with 64-deep K-steps through a bf16 hidden layer above it,
-K walked in 64-channel slabs) and rounded to bf16 exactly where the
-kernels round, against the float32 plain versions and the JAX reference
-at the bf16 bounds of the card tests (forward atol = rtol = 2e-2, input
-gradient max error <= 2e-2 of its largest entry).
+kernels' order (csrc/convnext_block.cu: the depthwise passes' tiles,
+32-channel chunks and halo boxes zero-filled outside the image, 128-token
+tiles zero-filled past the last token, 64-wide hidden chunks in the fused
+form at C <= 192, 128 x 128 tiles with 64-deep K-steps through a bf16
+hidden layer above it, K walked in 64-channel slabs) and rounded to bf16
+exactly where the kernels round, against the float32 plain versions and
+the JAX reference at the bf16 bounds of the card tests (forward atol =
+rtol = 2e-2, input gradient max error <= 2e-2 of its largest entry). The
+depthwise walk alone is held to F.conv2d at atol 1e-5 (float32, 49 terms
+summed in another order).
 """
 
 import functools
+import os
+import re
 
 import numpy as np
 import pytest
@@ -137,13 +142,57 @@ def _fused_tiles(toks, chunk):
     return acc[:n]
 
 
+def _dw_patches(th, tw, rh, rw):
+    """The patch origins of the depthwise kernels' warps (warp w: row
+    (w // (tw // rw)) rh, column (w % (tw // rw)) rw of the tile)."""
+    wc = tw // rw
+    return [((w // wc) * rh, (w % wc) * rw) for w in range(cb.DW_WARPS)]
+
+
+def dw_walk(x, dw, flip=False):
+    """The 7x7 depthwise conv of channels-last ``x`` with taps ``dw`` (C,
+    1, 7, 7), or (``flip``) its correlation with the flipped taps, as the
+    depthwise kernels walk it: TH x TW tiles (``DW_TILES`` by width), each
+    warp an RH x RW patch of the tile, DW_CHUNK channels at a time, each
+    chunk of a tile from one (TH + 6) x (TW + 6) halo box that starts 3
+    pixels before the tile and is zero outside the tensor (the TMA fill:
+    the padding and the ragged edge), every output summing its taps
+    ky-major, kx-minor."""
+    b, h, w, c = x.shape
+    th, tw, rh, rw = cb.DW_TILES[c]
+    cover = torch.zeros(th, tw, dtype=torch.int64)
+    for ry, rx in _dw_patches(th, tw, rh, rw):
+        cover[ry:ry + rh, rx:rx + rw] += 1
+    assert bool((cover == 1).all()), "the warps' patches tile the tile"
+    # the LayerNorm pass: L lanes a token, 4 channels a lane at a time
+    lanes = 8 if th * tw >= 32 else 32 * cb.DW_WARPS // (th * tw)
+    assert th * tw % (32 * cb.DW_WARPS // lanes) == 0
+    assert c % (4 * lanes) == 0 and c % cb.DW_CHUNK == 0
+    ty, tx = -(-h // th), -(-w // tw)
+    xp = F.pad(x, (0, 0, 3, tx * tw - w + 3, 3, ty * th - h + 3))
+    taps = dw[:, 0].flip(-1, -2) if flip else dw[:, 0]
+    out = torch.zeros(b, ty, tx, th, tw, c)
+    for c0 in range(0, c, cb.DW_CHUNK):
+        # every tile's halo box of the chunk: (B, ty, tx, chunk, TH+6, TW+6)
+        halo = xp[..., c0:c0 + cb.DW_CHUNK].unfold(1, th + 6, th).unfold(
+            2, tw + 6, tw)
+        k = taps[c0:c0 + cb.DW_CHUNK, :, :, None, None]
+        acc = torch.zeros(halo.shape[:4] + (th, tw))
+        for ky in range(7):
+            for kx in range(7):
+                acc += halo[..., ky:ky + th, kx:kx + tw] * k[:, ky, kx]
+        out[..., c0:c0 + cb.DW_CHUNK] = acc.permute(0, 1, 2, 4, 5, 3)
+    return out.permute(0, 1, 3, 2, 4, 5).reshape(
+        b, ty * th, tx * tw, c)[:, :h, :w]
+
+
 def block_kernel_order(x, dy, dw, dwb, ls, lb, w1, b1, w2, b2, g):
     """The block's forward and input gradient as csrc/convnext_block.cu
     computes them, rounding to bf16 where the kernels round: u, W1, W2,
-    gelu(h) (forward), gms = gamma * dy and dh (backward)."""
+    gelu(h) (forward), gms = gamma * dy and dh (backward); the depthwise
+    conv and correlation as ``dw_walk``."""
     c = x.shape[-1]
-    y = F.conv2d(x.permute(0, 3, 1, 2), dw, dwb, padding=3, groups=c)
-    y = y.permute(0, 2, 3, 1).reshape(-1, c)
+    y = (dw_walk(x, dw) + dwb).reshape(-1, c)
     d = y - y.mean(-1, keepdim=True)
     inv = torch.rsqrt((d * d).mean(-1, keepdim=True) + cb.LN_EPS)
     xhat = d * inv
@@ -170,9 +219,8 @@ def block_kernel_order(x, dy, dw, dwb, ls, lb, w1, b1, w2, b2, g):
     dxh = du * ls
     dyconv = inv * (dxh - dxh.mean(-1, keepdim=True)
                     - xhat * (dxh * xhat).mean(-1, keepdim=True))
-    corr = F.conv2d(dyconv.reshape(x.shape).permute(0, 3, 1, 2),
-                    dw.flip(-1, -2), padding=3, groups=c)
-    return out.reshape(x.shape), dy + corr.permute(0, 2, 3, 1)
+    corr = dw_walk(dyconv.reshape(x.shape), dw, flip=True)
+    return out.reshape(x.shape), dy + corr
 
 
 def _scaled_jax_params(rng, c):
@@ -196,12 +244,12 @@ def one_thread():
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_block_case(c):
-    """Five 7 x 11 images at width c and the JAX reference's output and
-    input gradient for them (one jitted call per width)."""
+def _jax_block_case(c, images=(5, 7, 11)):
+    """Images (default five 7 x 11) at width c and the JAX reference's
+    output and input gradient for them (one jitted call per case)."""
     rng = np.random.default_rng(21)
     pj = _scaled_jax_params(rng, c)
-    x = rng.normal(size=(5, 7, 11, c)).astype(np.float32)
+    x = rng.normal(size=images + (c,)).astype(np.float32)
     dy = rng.normal(size=x.shape).astype(np.float32)
 
     @jax.jit
@@ -250,6 +298,86 @@ def test_block_kernel_order_matches_plain_every_width(c, one_thread):
                                atol=2e-2, rtol=2e-2)
     dx_plain = cb.convnext_block_dx_plain(xt, dyt, *pt)
     assert float((dx - dx_plain).abs().max() / dx_plain.abs().max()) <= 2e-2
+
+
+# the depthwise tiles' ragged edges at the other test shapes: 2 x 5 x 13
+# (tiles past the bottom and the right edge at every width) against the
+# plain versions and JAX, and the VOC stage-0 size 119 x 119 at C = 96
+@pytest.mark.parametrize("c,images", [(96, (2, 5, 13)), (384, (2, 5, 13)),
+                                      (768, (2, 5, 13)),
+                                      (96, (1, 119, 119))])
+def test_block_kernel_order_ragged_tiles(c, images, one_thread):
+    x, dy, pj, want, dx_jax = _jax_block_case(c, images)
+    pt = _torch_params(pj)
+    xt, dyt = torch.tensor(x), torch.tensor(dy)
+    out, dx = block_kernel_order(xt, dyt, *pt)
+    np.testing.assert_allclose(out.numpy(), want, atol=2e-2, rtol=2e-2)
+    dx_plain = cb.convnext_block_dx_plain(xt, dyt, *pt)
+    for ref in (dx_plain.numpy(), dx_jax):
+        err = np.abs(dx.numpy() - ref).max() / np.abs(ref).max()
+        assert err <= 2e-2, err
+
+
+# the depthwise walk alone: every width's tile at the VOC stage sizes
+# (119, 59, 29, 14: ragged against 8- and 4-pixel tiles), a map smaller
+# than one tile, and the correlation with the flipped taps
+@pytest.mark.parametrize("c,hw", [(96, 119), (192, 59), (384, 29),
+                                  (768, 14), (1024, 3), (128, 5), (256, 7),
+                                  (512, 9)])
+def test_dw_walk_matches_conv(c, hw, one_thread):
+    rng = np.random.default_rng(c + hw)
+    x = torch.tensor(rng.normal(size=(1, hw, hw + 2, c)).astype(np.float32))
+    dw = torch.tensor(rng.normal(size=(c, 1, 7, 7)).astype(np.float32))
+    xc = x.permute(0, 3, 1, 2)
+    for flip in (False, True):
+        want = F.conv2d(xc, dw.flip(-1, -2) if flip else dw, padding=3,
+                        groups=c).permute(0, 2, 3, 1)
+        torch.testing.assert_close(dw_walk(x, dw, flip), want, atol=1e-5,
+                                   rtol=1e-5)
+
+
+def _cuda_source(name):
+    path = os.path.join(os.path.dirname(cb.__file__), "..", "csrc", name)
+    with open(path) as f:
+        return f.read()
+
+
+def test_dw_tiles_are_the_kernels():
+    """DW_TILES and the engine's constants are the CUDA source's, and
+    every pass at every width fits a ring of at least two stages (a stage
+    holds a chunk's halo, its 49 taps and, where the pass reads dy, dy's
+    box; y or the correlation tile beside the ring) into its block's budget, which two
+    blocks an SM leave (228 KB of shared memory, 1 KB reserved a block)."""
+    src = _cuda_source("convnext_block.cu")
+    table = src[src.index("#define ROBSEG_DW_TILES"):]
+    table = table[:table.index("\n\n")]
+    tiles = {int(m[0]): tuple(int(v) for v in m[1:]) for m in re.findall(
+        r"X\((\d+), (\d+), (\d+), (\d+), (\d+)\)", table)}
+    assert tiles == cb.DW_TILES
+    for name, value in (("kDwChunk", cb.DW_CHUNK),
+                        ("kDwMaxStages", cb.DW_MAX_STAGES),
+                        ("kDwBlocksPerSm", cb.DW_BLOCKS_PER_SM),
+                        ("kDwThreads", 32 * cb.DW_WARPS)):
+        assert re.search(rf"constexpr int {name} = {value};", src), name
+    assert re.search(r"constexpr int kDwSmemBudget = 113 \* 1024;", src)
+    assert cb.DW_BLOCKS_PER_SM * (cb.DW_SMEM_BUDGET + 1024) <= 228 * 1024
+
+    def align(v):
+        return -(-v // 128) * 128
+
+    taps = 49 * cb.DW_CHUNK * 4
+    for c, (th, tw, _, _) in cb.DW_TILES.items():
+        halo, box = (th + 6) * (tw + 6) * cb.DW_CHUNK, th * tw * cb.DW_CHUNK
+        for io in (4, 2):
+            for stage, tail in (
+                    (align(halo * io) + taps, th * tw * c * 4),  # forward
+                    (align(halo * io) + taps + align(box * io),
+                     th * tw * c * 4),                           # backward
+                    (align(halo * 4) + taps + align(box * io),
+                     box * 4)):                                  # dwcorr
+                stages = min(cb.DW_MAX_STAGES, (cb.DW_SMEM_BUDGET - 128 - tail)
+                             // (stage + 8))
+                assert stages >= 2, (c, io, stage, tail)
 
 
 def test_block_mlp_form_by_width():
