@@ -10,8 +10,9 @@ with ``git archive`` into a git-ignored directory. Give them in turns
 (parent, change, change, parent): a card's clocks follow its power and
 temperature, so one pair alone says little. ``WHAT``:
 
-- ``kernels``: phases 2, 2 fpn and 2b (every kernel against its plain
-  version, with times, bounds and the per-kernel splits);
+- ``kernels``: phases 2, 2 fpn, 2 mlp and 2b (every kernel against its
+  plain version, with times, bounds and the per-kernel splits; the block
+  forward's device split by kernel beside each kernel's bound);
 - ``paths``: phases 4 and 4c (the main path's APGD rates under
   ``default`` and ``bf16``, each with its profile) and 10a (the train
   step);
@@ -40,6 +41,7 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 SUMMARY = re.compile(
     r"four batch-16|^(block|fpn_concat_conv).*kernel [\d.]+ ms, plain"
+    r"|^block .*fwd device split|^convnext_mlp .*3 stages summed"
     r"|apgd .*marginal|^train step \(|^fpn gemm|^steps")
 
 
@@ -115,6 +117,7 @@ def one(tree: str, what: str) -> None:
             results = {}
             cs.phase_kernels(dev, results)
             cs.phase_fpn(dev, results)
+            cs.phase_mlp(dev, results)
             cs.phase_bf16_kernels(dev, results)
     if what in ("paths", "all"):
         bundle = cs.build_model(dev)
@@ -168,7 +171,7 @@ def main():
         with open(log) as f:
             for line in f:
                 if SUMMARY.search(line):
-                    print(line.rstrip()[:300])
+                    print(line.rstrip()[:900])
 
 
 if __name__ == "__main__":

@@ -50,7 +50,12 @@ result line):
      bit for bit equal to its float32 form on the upcast inputs with the
      result rounded once to bf16, and held against its plain version on
      the same bf16 inputs, with times, bounds (bytes at 2 bytes an
-     element) and, for the FPN, one bf16 cuDNN call;
+     element) and, for the FPN, one bf16 cuDNN call; the block forward's
+     device split by kernel (the packing, dwconv_ln, the MLP kernel or
+     kernels), each beside its own bound, the MLP's GELU floor (n 4C exact
+     GELUs at GELU_INSTRUCTIONS float32 instructions) and the call's time
+     (``fwd device split`` lines; phase 2 prints them for the float32
+     form);
   3. (TF32 off) the full-width UperNet-ConvNeXt-T_CVST (21 classes,
      seeded random weights) on a (2, 3, 512, 512) batch: logits and the
      input gradient of sum(mask-ce-avg) against the same model with every
@@ -348,6 +353,12 @@ FUSED_MODES = ("residual", "recompute", "residual_bf16", "recompute_bf16")
 HBM_BYTES_PER_S = 3.35e12
 # float32-accurate products on the tensor cores: three TF32 passes
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12, "tf32x3": 494.7e12 / 3}
+# float32 instructions of one exact GELU on the CUDA cores (the bias, erff's
+# polynomial and its exponential branch, which a warp runs both of, the
+# products and the bf16 rounding), the sizing of the MLP's GELU floor; the
+# card issues one a lane a cycle, half its float32 FLOP rate (an FMA is 2)
+GELU_INSTRUCTIONS = 25
+FP32_INSTRUCTIONS_PER_S = PEAK_FLOPS["f32"] / 2
 
 
 @contextlib.contextmanager
@@ -485,14 +496,16 @@ def block_part(name: str) -> str:
     return "packing"
 
 
-def print_split(label: str, fn, part_bytes=None) -> dict:
-    """Print each CUDA kernel's own time in one call of ``fn`` and return
-    the times summed by block part (``block_part``). ``part_bytes`` maps a
-    kernel's name (``dwconv_ln_kernel``, ``dwcorr_kernel``,
-    ``relu_grad_kernel``) to the bytes it must move: each such kernel is
-    printed again beside its bytes bound and share, and the returned dict
-    gets ``"bounds": {name: [ms, bound_ms]}``."""
-    split = kernel_split(fn)
+def print_split(label: str, fn, part_bytes=None, split=None) -> dict:
+    """Print each CUDA kernel's own time in one call of ``fn`` (or of the
+    ``split`` kernel_split already took) and return the times summed by
+    block part (``block_part``). ``part_bytes`` maps a kernel's name
+    (``dwconv_ln_kernel``, ``dwcorr_kernel``, ``relu_grad_kernel``) to the
+    bytes it must move: each such kernel is printed again beside its bytes
+    bound and share, and the returned dict gets ``"bounds": {name: [ms,
+    bound_ms]}``."""
+    if split is None:
+        split = kernel_split(fn)
     if not split:
         print(f"{label} split: not measured (torch.profiler recorded no "
               "device time in 3 windows)", flush=True)
@@ -527,6 +540,74 @@ def depthwise_bytes(n: int, c: int, io: int, dx: bool) -> dict:
         return {"dwconv_ln_kernel": n * c * (io + 2) + taps}
     return {"dwconv_ln_kernel": n * c * (2 * io + 2 + 4 + 2) + n * 4 + taps,
             "dwcorr_kernel": n * c * (4 + 2 * io) + taps}
+
+
+def block_fwd_bounds(n: int, c: int, io: int, p_io: int) -> dict:
+    """The least time (``bound``: ms, what binds it) of each kernel of one
+    block forward over n tokens of width c, x and out ``io`` bytes an
+    element, the parameters ``p_io``: the packing (the parameters read,
+    written packed: taps f32, W1 and W2 bf16, and bf16 vectors upcast to
+    f32); dwconv_ln (depthwise_bytes; 49 FMAs an element); the fused MLP
+    (u bf16, x and out, the bf16 weights; 16 n C^2 bf16 products) or its
+    two GEMMs (mlp_gemm_kernel<0, ..>: u, W1, the bf16 hidden layer
+    written; <1 or 5, ..>: it read, W2, x and out; 8 n C^2 each). Keys are
+    the kernels' names up to their template arguments."""
+    from robseg_torch.kernels import convnext_block as cb
+    vec, w = 9 * c, 8 * c * c
+    pack = (49 * c + w + vec) * p_io + 49 * c * 4 + 2 * w + (
+        4 * vec if p_io == 2 else 0)
+    out = {"pack_kernel": bound(pack, {"f32": 0.0}),
+           "dwconv_ln_kernel": bound(
+               depthwise_bytes(n, c, io, False)["dwconv_ln_kernel"],
+               {"f32": 98 * n * c})}
+    xo = 2 * io * n * c + 6 * c * 4
+    if cb.fused(c):
+        out["mlp_fused_kernel"] = bound(2 * n * c + 2 * w + xo,
+                                        {"bf16": 16 * n * c * c})
+    else:
+        hid = 2 * n * 4 * c
+        out["mlp_gemm_kernel<0"] = bound(2 * n * c + w + hid,
+                                         {"bf16": 8 * n * c * c})
+        out["mlp_gemm_kernel<" + ("5" if io == 2 else "1")] = bound(
+            hid + w + xo, {"bf16": 8 * n * c * c})
+    return out
+
+
+def gelu_floor_ms(n: int, c: int) -> float:
+    """The CUDA cores' least time for the MLP's n 4C exact GELUs at
+    GELU_INSTRUCTIONS each."""
+    return n * 4 * c * GELU_INSTRUCTIONS / FP32_INSTRUCTIONS_PER_S * 1e3
+
+
+def print_fwd_parts(label: str, split, n: int, c: int, io: int, p_io: int,
+                    call_ms: float) -> dict:
+    """One block forward's device split (``split``, kernel_split's rows)
+    by kernel: the packing, dwconv_ln and the MLP kernel or kernels, each
+    beside its bound (block_fwd_bounds), the GELU's floor beside the
+    kernel that runs the GELU, and the device sum beside the call's
+    CUDA-event time. Returns {kernel: [ms, bound_ms]}."""
+    if not split:
+        print(f"{label} device split: not measured", flush=True)
+        return {}
+    bounds = block_fwd_bounds(n, c, io, p_io)
+    parts, text = {}, []
+    for kname, ms, _ in split:
+        key = next((k for k in bounds if k in kname), None)
+        if key is None:
+            continue
+        bms, by = bounds[key]
+        parts[short_name(kname)] = [ms, bms]
+        note = ""
+        if "mlp_fused_kernel" in kname or "mlp_gemm_kernel<0" in kname:
+            note = (f"; GELU floor {gelu_floor_ms(n, c):.4f} ms: "
+                    f"{n * 4 * c / 1e6:.1f} M exact GELUs at "
+                    f"{GELU_INSTRUCTIONS} float32 instructions")
+        text.append(f"{short_name(kname)} {ms:.4f} ms (bound {bms:.4f} ms, "
+                    f"{by}, share {bms / ms:.1%}{note})")
+    device = sum(ms for ms, _ in parts.values())
+    print(f"{label} device split: " + "; ".join(text) + f" | device sum "
+          f"{device:.4f} ms, call {call_ms:.4f} ms", flush=True)
+    return parts
 
 
 def phase_kernels(dev, results, train_stages=()):
@@ -584,8 +665,12 @@ def phase_kernels(dev, results, train_stages=()):
                  t[0], t[1]),
                 (dxr, "dx", lambda: cb.convnext_block_dx_cuda(x, dy, *p), db,
                  t[2], t[3])):
+            split = kernel_split(fn)
             parts = print_split(f"block {shape} {name}", fn,
-                                depthwise_bytes(n, c, 4, name == "dx"))
+                                depthwise_bytes(n, c, 4, name == "dx"),
+                                split)
+            if name == "fwd":
+                print_fwd_parts(f"block {shape} fwd", split, n, c, 4, 4, tk)
             bms, bby = bound(*bb)
             print(f"block {shape} {name} by part {json.dumps(parts)} | bound "
                   f"{bms:.4f} ms ({bby}), roofline share {bms / tk:.1%}",
@@ -1125,8 +1210,13 @@ def phase_bf16_kernels(dev, results):
                  t[0], t[1], fb),
                 (dxr, "dx", lambda: cb.convnext_block_dx_bf16_cuda(x, dy, *p),
                  t[2], t[3], db)):
+            split = kernel_split(fn)
             parts = print_split(f"block bf16 I/O {shape} {name}", fn,
-                                depthwise_bytes(n, c, 2, name == "dx"))
+                                depthwise_bytes(n, c, 2, name == "dx"),
+                                split)
+            if name == "fwd":
+                print_fwd_parts(f"block bf16 I/O {shape} fwd", split, n, c,
+                                2, 2, tk)
             bms, bby = bound(*bb)
             if name == "dx" and shape in stages:
                 for key, (ms, b) in parts.get("bounds", {}).items():

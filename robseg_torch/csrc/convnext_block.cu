@@ -24,8 +24,8 @@
 // the store. So the bf16 form computes bit for bit what the float32 form
 // computes on the upcast inputs, rounded once at the output. The I/O type
 // is a template parameter of the depthwise passes and the forward's
-// epilogues (mlp_fused_kernel<.., IO>, mlp_gemm_kernel<kResidBf16>), so
-// the float32 instantiations are the code they were.
+// epilogues (mlp_fused_kernel<.., IO>, mlp_gemm_kernel<kResidBf16, ..>):
+// the two forms share every product and every float32 operation.
 //
 // Bound on the H100: 16 C^2 bf16 operations per token forward (two
 // matmuls), 24 C^2 backward (three), against 8 (forward) or 12 (backward)
@@ -50,23 +50,34 @@
 //   leaves the chip. A persistent block (one per SM) walks 128-token
 //   tiles. One producer thread streams, per 64-wide hidden chunk, the W1
 //   rows of the chunk (64 x C) and the W2 columns (C x 64) into a ring of
-//   shared-memory slots with full/empty mbarriers, and the token tile (u;
-//   in the backward also gms) into its own buffer. Two consumer
+//   shared-memory slots with full/empty mbarriers; a second streams the
+//   token tiles of u into two buffers, a tile ahead. Two consumer
 //   warpgroups own 64 tokens each. Per chunk: h = u . W1c^T with wgmma
-//   from shared memory (m64n64k16); bias, erf-GELU and bf16 rounding in
+//   from shared memory (m64n64k16, C / 16 steps: the C = 96 tail's
+//   zero-filled steps are not issued); bias, erf-GELU and bf16 rounding in
 //   registers; then acc += gelu(h) . W2c^T with the A operand straight
 //   from those registers (wgmma with A in registers, m64nCk16: the
 //   accumulator layout of h is the A-fragment layout), so gelu(h) touches
-//   shared memory nowhere. The next chunk's weights land while this one
-//   computes, and one warpgroup's epilogue overlaps the other's products.
+//   shared memory nowhere. The forward is software pipelined: each
+//   warpgroup issues chunk g + 1's h product (two h register sets) before
+//   it runs chunk g's GELU, which the CUDA cores run while the tensor
+//   cores multiply. A tile's last chunk
+//   issues the next tile's first h, so the epilogue runs under it. The
+//   GELU (n 4C erff on the CUDA cores, ~0.075 ms at stage 0 of batch 16)
+//   is the longer of the two at C <= 192, the products ~0.039 ms a stage.
+//   bf16 out: each warp brings its 16 rows of x by TMA into its rows of
+//   the token tile it has finished with, writes out over them and stores
+//   them by TMA; float32 out goes from the accumulator registers (an L2
+//   prefetch of x by TMA a tile ahead cost 10%).
 //   The backward takes three slots per chunk: h = u . W1c^T and da = gms .
 //   W2^T_c (two m64n64k16 products sharing the token tile), dh = bf16(da *
 //   GELU'(h + b1)) in registers, du += dh . W1c (A in registers); the
 //   LayerNorm backward runs in the epilogue, where each row's C columns sit
 //   in the four threads of one quad.
 //   Registers per consumer thread (setmaxnreg 232): the 64 x C f32 output
-//   accumulator C / 2 (48 / 64 / 96 at C = 96 / 128 / 192), h 32, da 32
-//   (backward), the bf16 A fragments 16: at most 176 plus addressing.
+//   accumulator C / 2 (48 / 64 / 96 at C = 96 / 128 / 192), h 2 x 32 in
+//   the forward (32 and da 32 in the backward), the bf16 A fragments 16:
+//   at most 176 plus addressing.
 // - C >= 256: the accumulator would take 128 (C = 256), 192 (384) or 384
 //   (768) registers a thread; with h, da and the fragments beside it 256
 //   and 384 leave no room, and splitting 384's columns over two
@@ -74,15 +85,20 @@
 //   beside the token tile, more than 227 KB holds with two stages. So the
 //   hidden layer goes to device memory as bf16, which is the rounding the
 //   kernel applies to it anyway (results unchanged), through two GEMMs
-//   (mlp_gemm_kernel, persistent, 128 x 128 tiles, K-steps of 64 through a
-//   TMA ring, two consumer warpgroups with m64n128k16) with fused
-//   epilogues: forward h = bf16(gelu(u . W1^T + b1)), then out = x + gamma
-//   * (h . W2^T + b2); backward dh = bf16((gms . W2) * GELU'(u . W1^T +
-//   b1)) (two accumulators), then du = dh . W1, whose LayerNorm backward is
-//   a row pass (ln_bwd_kernel) before dwcorr. Each moves 2 bytes of
-//   hidden layer per C products of it, C / 2 >= 128 operations a byte of
-//   hidden traffic: at C = 384, 100 MB more than the fused form at batch
-//   16 (0.03 ms at 3.35 TB/s) against 0.04 ms of products.
+//   (mlp_gemm_kernel, persistent, 128-row tiles, K-steps of 64 through a
+//   TMA ring, two consumer warpgroups with m64nBNk16) with fused
+//   epilogues: forward h = bf16(gelu(u . W1^T + b1)) in 128 x 128 tiles,
+//   then out = x + gamma * (h . W2^T + b2) in 128 x BN tiles, BN 192 or 128
+//   by the tile count (gemm_bn: 192 at 32^2 and 16^2, where 128 left 60 of
+//   132 SMs a second wave at 16^2); the bf16 outputs (h, and out in the
+//   bf16 form) leave through TMA stores staged a warp's 16 x 64 box at a
+//   time, so the next tile's main loop starts while they drain. Backward
+//   dh = bf16((gms . W2) * GELU'(u . W1^T + b1)) (two accumulators), then
+//   du = dh . W1, whose LayerNorm backward is a row pass (ln_bwd_kernel)
+//   before dwcorr. Each moves 2 bytes of hidden layer per C products of
+//   it, C / 2 >= 128 operations a byte of hidden traffic: at C = 384, 100
+//   MB more than the fused form at batch 16 (0.03 ms at 3.35 TB/s) against
+//   0.04 ms of products.
 //
 // The weight panels are packed once per call on the host side (bf16, and
 // for the backward W2^T (4C, C) and W1^T (C, 4C), each K-major), the

@@ -41,7 +41,7 @@
 //   the registers that hold it and READ_H loading h there instead of
 //   multiplying (the W1 panel then stays out of the ring); the backward's
 //   epilogue is the LayerNorm backward and writes dx. C >= 256: the
-//   128 x 128-tile GEMM with the tail's epilogues (h saved beside the bf16
+//   128-row-tile GEMMs with the tail's epilogues (h saved beside the bf16
 //   hidden layer; gamma (acc + b2) without x; dh = bf16(da GELU'(h)) from
 //   the read h), then the LayerNorm-backward row pass.
 // - float32 (convnext_mlp_f32.cu): two 3xTF32 GEMMs through an f32 h in

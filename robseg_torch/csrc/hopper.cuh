@@ -9,10 +9,10 @@
 //   swizzle, K-major, 8-row groups 1024 bytes apart, its base 1024-byte
 //   aligned; TMA writes exactly this layout for a {64, rows} box of a map
 //   encoded with CU_TENSOR_MAP_SWIZZLE_128B.
-// - wgmma_ss<N> (N = 64, 128, 256) is d (+)= A (64 x 16, shared) . B
+// - wgmma_ss<N> (N = 64, 128, 192, 256) is d (+)= A (64 x 16, shared) . B
 //   (N x 16, shared)^T; wgmma_rs<N> (N = 96, 128, 192) the same with A in
 //   registers, four bf16 pairs a thread in the layout of a wgmma
-//   accumulator's k16 slice (see fused_consumer in convnext_mlp.cuh).
+//   accumulator's k16 slice (see fused_fwd_consumer in convnext_mlp.cuh).
 // - The TF32 kind: a tile is rows of 32 floats (128 bytes) under the same
 //   swizzle, so a k8 step is 32 bytes as a bf16 k16 step is and smem_desc
 //   serves both. wgmma_rs_tf32<N> (N = 96, 128) is d (+)= A (64 x 8) . B
@@ -23,11 +23,11 @@
 // - Accumulator layout (m64nN, f32): thread t of the warpgroup, warp w =
 //   t / 32, lane l, holds rows 16 w + l / 4 + 8 hh (hh = 0, 1) and columns
 //   8 j + 2 (l % 4) + {0, 1} (j < N / 8) in d[4 j + 2 hh + {0, 1}].
-// - TMA stores (tma_store_4d): threads write the box into shared memory in
-//   the layout a load of the same map gives, fence_async_shared, meet at a
-//   barrier (__syncwarp for a warp's box), then one thread issues the store
-//   and bulk_commit; before the buffer is written again that thread waits
-//   on bulk_wait_read.
+// - TMA stores (tma_store_4d, tma_store_2d): threads write the box into
+//   shared memory in the layout a load of the same map gives,
+//   fence_async_shared, meet at a barrier (__syncwarp for a warp's box),
+//   then one thread issues the store and bulk_commit; before the buffer is
+//   written again that thread waits on bulk_wait_read.
 
 #pragma once
 
@@ -191,6 +191,14 @@ __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
       "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3}], [%1];" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1)
+      : "memory");
+}
 __device__ __forceinline__ void bulk_commit() {
   asm volatile("cp.async.bulk.commit_group;" ::: "memory");
 }
@@ -213,6 +221,16 @@ __device__ __forceinline__ void fence_async_shared() {
 }
 __device__ __forceinline__ void st_shared_b32(uint32_t addr, uint32_t v) {
   asm volatile("st.shared.b32 [%0], %1;" ::"r"(addr), "r"(v) : "memory");
+}
+__device__ __forceinline__ uint32_t ld_shared_b32(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.b32 %0, [%1];" : "=r"(v) : "r"(addr) : "memory");
+  return v;
+}
+// the threads of one warpgroup meet at named barrier `id` (1..15; 0 is
+// __syncthreads')
+__device__ __forceinline__ void warpgroup_sync(int id) {
+  asm volatile("bar.sync %0, 128;" ::"r"(id) : "memory");
 }
 
 __device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
@@ -297,6 +315,29 @@ __device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t da,
       "%56, %57, %58, %59, %60, %61, %62, %63"
       "}, %64, %65, p, 1, 1, 0, 0;\n\t}"
       : D8(0), D8(8), D8(16), D8(24), D8(32), D8(40), D8(48), D8(56)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<192>(float (&d)[96], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %98, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95"
+      "}, %96, %97, p, 1, 1, 0, 0;\n\t}"
+      : D8(0), D8(8), D8(16), D8(24), D8(32), D8(40), D8(48), D8(56), D8(64), D8(72), D8(80), D8(88)
       : "l"(da), "l"(db), "r"(scale_d));
 }
 

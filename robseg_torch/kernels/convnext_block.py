@@ -29,8 +29,9 @@ The MLP runs in one of two forms (``fused``): at ``C <= FUSED_MAX_C`` one
 kernel keeps the 4C hidden layer on chip, walking ``TILE_M``-token tiles
 and ``HIDDEN_CHUNK``-wide hidden chunks; above it two GEMMs pass the
 hidden layer through device memory in bf16 (``(B*H*W, 4C)`` scratch),
-``TILE_M x TILE_N`` tiles with ``HIDDEN_CHUNK``-deep K-steps. Both round
-where the TPU kernel rounds, so they compute the same function.
+``TILE_M x TILE_N`` tiles (``TILE_M x gemm_bn`` in the forward's second) with
+``HIDDEN_CHUNK``-deep K-steps. Both round where the TPU kernel rounds, so
+they compute the same function.
 
 The block is differentiable with respect to ``x`` only: parameters are
 attack-time constants and get no gradient (``None``), exactly as the JAX
@@ -71,10 +72,18 @@ def convnext_block_dx_plain(x, dy, dw, dwb, ls, lb, w1, b1, w2, b2, gamma):
     return dx.to(x.dtype)
 
 
-# the kernels' tiling (csrc/convnext_block.cu): 128-token tiles, 64-wide
-# hidden chunks and K-steps, 128 x 128 output tiles in the two-GEMM form
+# the MLP kernels' tiling (csrc/convnext_mlp.cuh): 128-token tiles, 64-wide
+# hidden chunks, and K-steps of 64 channels in shared memory, each four
+# K16-deep wgmma steps. The fused forward issues fused_h_steps(C) of them
+# for h = u . W1c^T (the zero-filled tail of the last 64-channel slab, at C
+# = 96, left out). bf16 outputs leave through TMA stores of STORE_BOX (a
+# warp's 16 rows x 64 columns). The forward's second GEMM takes TILE_M x BN
+# output tiles, BN one of GEMM_BN picked by gemm_bn; the other GEMMs
+# TILE_M x TILE_N.
 FUSED_MAX_C = 192
-TILE_M, TILE_N, HIDDEN_CHUNK = 128, 128, 64
+TILE_M, TILE_N, HIDDEN_CHUNK, K16 = 128, 128, 64, 16
+STORE_BOX = (16, 64)
+GEMM_BN = (192, 128)
 # the depthwise passes (ROBSEG_DW_TILES): persistent blocks of DW_WARPS
 # warps, at most DW_BLOCKS_PER_SM an SM, walk TH x TW tiles of one image,
 # DW_CHUNK channels at a time through a TMA ring of (TH + 6) x (TW + 6)
@@ -85,6 +94,27 @@ DW_BLOCKS_PER_SM, DW_SMEM_BUDGET = 2, 113 * 1024
 DW_TILES = {96: (8, 8, 4, 2), 128: (8, 8, 4, 2), 192: (4, 8, 2, 2),
             256: (8, 4, 4, 1), 384: (8, 4, 4, 1), 512: (4, 4, 2, 1),
             768: (4, 4, 2, 1), 1024: (4, 2, 1, 1)}
+
+
+def fused_h_steps(c: int) -> int:
+    """K16 steps of the fused forward's h = u . W1c^T at width ``c``."""
+    return -(-c // K16)
+
+
+def gemm_bn(m: int, n: int, sms: int) -> int:
+    """The second forward GEMM's tile width for an (m, n) output on ``sms`` SMs
+    (csrc/convnext_mlp.cuh::gemm_bn): of GEMM_BN's widths that divide n,
+    the one whose TILE_M x BN tiles take the fewest columns of waves
+    (ceil(tiles / sms) BN), the widest on a tie; 0 if none divides n."""
+    mt = -(-m // TILE_M)
+    best, cost = 0, 0
+    for bn in GEMM_BN:
+        if n % bn or sms < 1:
+            continue
+        c = -(-(mt * (n // bn)) // sms) * bn
+        if best == 0 or c < cost:
+            best, cost = bn, c
+    return best
 
 
 def fused(c: int) -> bool:

@@ -324,6 +324,48 @@ def test_split_prints_parts_against_their_bytes_bounds(smoke, monkeypatch,
     assert "dwcorr_kernel 0.0000" not in out
 
 
+def test_block_fwd_bounds_and_gelu_floor(smoke):
+    """The forward's kernels each against their own work: at stage 0 of
+    batch 16 (bf16) the fused MLP is bound by its bytes (u, x and out: 6 n
+    C, 0.045 ms; its 16 n C^2 products 0.039 ms), dwconv_ln by its 49 FMAs
+    an element, and the n 4C GELUs at 25 float32 instructions take 0.075
+    ms of the CUDA cores; at 16^2 the two GEMMs split the products, the
+    bf16 hidden layer written by the first and read by the second."""
+    n, c = 16 * 128 * 128, 96
+    b = smoke.block_fwd_bounds(n, c, 2, 2)
+    assert set(b) == {"pack_kernel", "dwconv_ln_kernel", "mlp_fused_kernel"}
+    assert b["mlp_fused_kernel"] == (pytest.approx(0.0451, abs=1e-4),
+                                     "bytes")
+    assert b["dwconv_ln_kernel"] == (pytest.approx(0.0368, abs=1e-4),
+                                     "operations")
+    assert smoke.gelu_floor_ms(n, c) == pytest.approx(0.0751, abs=1e-4)
+    n, c = 16 * 16 * 16, 768
+    b = smoke.block_fwd_bounds(n, c, 2, 2)
+    assert set(b) == {"pack_kernel", "dwconv_ln_kernel", "mlp_gemm_kernel<0",
+                      "mlp_gemm_kernel<5"}
+    hid = 2 * n * 4 * c / smoke.HBM_BYTES_PER_S * 1e3
+    assert b["mlp_gemm_kernel<0"][0] == pytest.approx(
+        max(8 * n * c * c / 989e12 * 1e3,
+            hid + (2 * n * c + 8 * c * c) / smoke.HBM_BYTES_PER_S * 1e3))
+    assert "mlp_gemm_kernel<1" in smoke.block_fwd_bounds(n, c, 4, 4)
+
+
+def test_fwd_parts_print_each_kernel_beside_its_bound(smoke, capsys):
+    split = [("void mlp_fused_kernel<96, false, false, __nv_bfloat16>"
+              "(FusedParams)", 0.2, 1.0),
+             ("void dwconv_ln_kernel<DwTile<8, 8, 4, 2>, __nv_bfloat16, "
+              "false>(DwParams)", 0.1, 1.0),
+             ("void pack_kernel(PackParams)", 0.004, 1.0)]
+    parts = smoke.print_fwd_parts("block x fwd", split, 16 * 128 * 128, 96,
+                                  2, 2, 0.4)
+    assert parts["mlp_fused_kernel<96, false, false, __nv_bfloat16>"] == [
+        0.2, pytest.approx(0.0451, abs=1e-4)]
+    out = capsys.readouterr().out
+    assert "GELU floor 0.0751 ms: 100.7 M exact GELUs" in out
+    assert "device sum 0.3040 ms, call 0.4000 ms" in out
+    assert smoke.print_fwd_parts("y", [], 1, 96, 2, 2, 1.0) == {}
+
+
 @pytest.mark.parametrize("key,shapes,kind", [
     ("aten::bmm", [[96, 1025, 64], [96, 64, 1025]], "attention matmuls"),
     ("aten::bmm", [[96, 1025, 1025], [96, 1025, 64]], "attention matmuls"),

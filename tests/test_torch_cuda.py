@@ -81,7 +81,8 @@ def rel_max_err(got, want):
 # tokens) in each MLP form (fused at C <= 192, two GEMMs above); the other
 # supported widths 128, 256 and 512; and the depthwise tiles' ragged edges
 # (8 x 8 tiles at 96, 4 x 8 at 192, 8 x 4 at 384, 4 x 4 at 768) at the VOC
-# stage sizes 59, 29 and 14 and at 7 x 11
+# stage sizes 59, 29 and 14 and at 7 x 11; VOC's batch-8 stage shapes at 96
+# and 768, and ragged token counts at 128 and 1024
 @pytest.mark.parametrize("shape", [(2, 37, 20, 96), (2, 119, 119, 96),
                                    (2, 60, 60, 192), (2, 30, 30, 384),
                                    (1, 15, 15, 768), (1, 8, 9, 1024),
@@ -89,7 +90,9 @@ def rel_max_err(got, want):
                                    (1, 16, 16, 128), (1, 3, 43, 256),
                                    (1, 9, 9, 512), (1, 7, 11, 96),
                                    (2, 59, 59, 192), (3, 29, 29, 384),
-                                   (1, 14, 14, 768)])
+                                   (1, 14, 14, 768), (8, 119, 119, 96),
+                                   (8, 14, 14, 768), (1, 13, 11, 128),
+                                   (2, 7, 9, 1024)])
 def test_block_kernels_match_plain(dev, shape):
     rng = np.random.default_rng(11)
     p = block_params(rng, shape[-1], dev)
@@ -401,13 +404,16 @@ def _bf16_pair(fn_bf16, fn_f32, bf_args, dtype=torch.bfloat16):
 
 
 # the four stage widths of the model (fused form at 96 and 192, two GEMMs
-# at 384 and 768), the ragged VOC stage sizes, and the depthwise tiles'
-# ragged edges
+# at 384 and 768), the ragged VOC stage sizes (at batch 8 too), the
+# depthwise tiles' ragged edges, and the fused and GEMM widths ConvNeXt-T
+# does not use (128, 1024)
 @pytest.mark.parametrize("shape", [(2, 37, 20, 96), (2, 119, 119, 96),
                                    (1, 30, 30, 192), (1, 15, 15, 384),
                                    (1, 8, 9, 768), (1, 7, 11, 96),
                                    (2, 59, 59, 192), (3, 29, 29, 384),
-                                   (1, 14, 14, 768)])
+                                   (1, 14, 14, 768), (8, 119, 119, 96),
+                                   (8, 14, 14, 768), (1, 13, 11, 128),
+                                   (2, 7, 9, 1024)])
 def test_block_bf16_forms_equal_f32_kernels_on_upcast_inputs(dev, shape):
     """bf16 I/O: bit for bit the float32 form on the upcast inputs,
     rounded once at the output; the parameters bf16 too."""

@@ -37,6 +37,8 @@ from robseg_torch import kernels
 from robseg_torch.kernels import convnext_block as cb
 from robseg_torch.kernels.convnext_block import convnext_block
 
+H100_SMS = 132  # the persistent grids' size on the H100
+
 
 def _jax_params(rng, c):
     """JAX-layout block parameters (tests/test_kernels.py::_params)."""
@@ -103,28 +105,44 @@ def _gelu_grad(v):
         -0.5 * v * v) * 0.3989422804014327
 
 
-def _k_steps(a, b):
-    """a . b^T over K in the kernels' 64-deep steps (one shared-memory slab
-    of the token tile and of the weight panel each, the C = 96 tail
-    zero-filled), the steps' products summed."""
-    k = cb.HIDDEN_CHUNK
-    steps = -(-a.shape[1] // k)
-    a, b = (F.pad(t, (0, steps * k - t.shape[1])).reshape(
-        t.shape[0], steps, k) for t in (a, b))
-    return torch.einsum("msk,nsk->smn", a, b).sum(0)
+def _k_steps(a, b, skip=True):
+    """a . b^T over K as the kernels walk it: K zero-filled to a multiple
+    of HIDDEN_CHUNK (a shared-memory slab of the token tile and of the
+    weight panel each; TMA's fill), each slab four K16-deep wgmma steps,
+    the steps' products summed in order. ``skip`` leaves out the steps
+    that lie wholly in the fill (the C = 96 tail of the fused kernels), as
+    the kernels do; without it, the zero-filled walk."""
+    k = a.shape[1]
+    steps = (cb.fused_h_steps(k) if skip else
+             -(-k // cb.HIDDEN_CHUNK) * cb.HIDDEN_CHUNK // cb.K16)
+    a, b = (F.pad(t, (0, steps * cb.K16 - k)).reshape(
+        t.shape[0], steps, cb.K16) for t in (a, b))
+    prods = torch.einsum("msk,nsk->smn", a, b)
+    out = prods[0]
+    for p in prods[1:]:
+        out = out + p
+    return out
 
 
-def _gemm_tiles(a, b):
-    """a (m, k) . b (n, k)^T over TILE_M x TILE_N output tiles, as
-    mlp_gemm_kernel walks them (rows past m are TMA zero fill)."""
+def _gemm_tiles(a, b, bn=None):
+    """a (m, k) . b (n, k)^T over TILE_M x bn output tiles, as
+    mlp_gemm_kernel walks them (rows past m are TMA zero fill): TILE_N, or
+    the forward's second GEMM's width from the plan (``gemm_bn`` on the
+    H100's SMs)."""
     m, n = a.shape[0], b.shape[0]
+    bn = bn or cb.TILE_N
+    assert n % bn == 0
     a = F.pad(a, (0, 0, 0, -m % cb.TILE_M))
     out = torch.zeros(a.shape[0], n)
     for m0 in range(0, a.shape[0], cb.TILE_M):
-        for n0 in range(0, n, cb.TILE_N):
-            out[m0:m0 + cb.TILE_M, n0:n0 + cb.TILE_N] = _k_steps(
-                a[m0:m0 + cb.TILE_M], b[n0:n0 + cb.TILE_N])
+        for n0 in range(0, n, bn):
+            out[m0:m0 + cb.TILE_M, n0:n0 + bn] = _k_steps(
+                a[m0:m0 + cb.TILE_M], b[n0:n0 + bn])
     return out[:m]
+
+
+def _second_gemm(a, b):
+    return _gemm_tiles(a, b, cb.gemm_bn(a.shape[0], b.shape[0], H100_SMS))
 
 
 def _fused_tiles(toks, chunk):
@@ -203,7 +221,7 @@ def block_kernel_order(x, dy, dw, dwb, ls, lb, w1, b1, w2, b2, g):
             _k_steps(t[0], w1b[j]) + b1[j])) @ w2b[:, j].T)
     else:
         hid = _bf(F.gelu(_gemm_tiles(u, w1b) + b1))
-        mlp = _gemm_tiles(hid, w2b)
+        mlp = _second_gemm(hid, w2b)
     out = x.reshape(-1, c) + g * (mlp + b2)
 
     gms = _bf(g * dy.reshape(-1, c))
@@ -378,6 +396,101 @@ def test_dw_tiles_are_the_kernels():
                 stages = min(cb.DW_MAX_STAGES, (cb.DW_SMEM_BUDGET - 128 - tail)
                              // (stage + 8))
                 assert stages >= 2, (c, io, stage, tail)
+
+
+def test_mlp_tiles_are_the_kernels():
+    """The MLP kernels' tiling constants are the CUDA source's, and every
+    width's plan fits: the fused forward two token tiles and a ring of at
+    least four slots, the backward a ring of three, each GEMM width a ring
+    of two stages beside the staging boxes (227 KB a block)."""
+    src = _cuda_source("convnext_mlp.cuh")
+    line = re.search(r"#define ROBSEG_GEMM_BN\(X\)(.*)", src).group(1)
+    assert tuple(int(v) for v in re.findall(r"X\((\d+)\)", line)) == cb.GEMM_BN
+    for name, value in (("kTM", cb.TILE_M), ("kHC", cb.HIDDEN_CHUNK),
+                        ("kBoxRows", cb.STORE_BOX[0]),
+                        ("kFusedMaxC", cb.FUSED_MAX_C)):
+        assert re.search(rf"constexpr int {name} = {value};", src), name
+    # the fused h product: K16-deep steps, C / K16 of them
+    assert re.search(r"for \(int k = 0; k < C / 16; \+\+k\)", src)
+    assert cb.STORE_BOX[1] * 2 == 128  # a box row: the 128-byte swizzle
+    smem, slab = 232448, cb.TILE_M * 128
+    for c in (96, 128, 192):
+        kc = -(-c // 64)
+        slot = max(kc * 64 * 128, c * 128)
+        assert (smem - 1024 - 2 * kc * slab - 8 * 28) // slot >= 4, c
+        assert (220 * 1024 - 2 * kc * slab - 2048) // slot >= 3, c
+    for bn in cb.GEMM_BN:
+        stage, staging = (128 + bn) * 128, 8 * 2 * 16 * 128
+        assert (smem - 1024 - staging - 96) // stage >= 2, bn
+
+
+def _store_cover(m, n, bn):
+    """How often each element of an (m, n) bf16 output is written by the
+    TMA store boxes the kernels issue: in each TILE_M x bn tile, each
+    consumer warp's STORE_BOX[0] rows (warpgroup w's rows 64 w .. 64 w +
+    63, warp v's 16 of them from 16 v) and each STORE_BOX[1]-column box
+    of the tile's columns; TMA writes only what lies inside (m, n)."""
+    rows, cols = cb.STORE_BOX
+    cover = np.zeros((m, n), np.int32)
+    for m0 in range(0, m, cb.TILE_M):
+        for n0 in range(0, n, bn):
+            for r in range(m0, m0 + cb.TILE_M, rows):
+                for c0 in range(n0, n0 + bn, cols):
+                    cover[r:r + rows, c0:c0 + cols] += 1
+    return cover
+
+
+# the fused forward (one tile holds every channel, KC slabs of 64) and the
+# GEMMs (the hidden layer n x 4C and out n x C, BN from the plan) at the
+# model's batch-16 stages, VOC's ragged batch-8 stages and every other
+# width with a ragged token count
+@pytest.mark.parametrize("n,c", [(16 * 128 * 128, 96), (8 * 119 * 119, 96),
+                                 (16 * 64 * 64, 192), (8 * 59 * 59, 192),
+                                 (16 * 32 * 32, 384), (8 * 29 * 29, 384),
+                                 (16 * 16 * 16, 768), (8 * 14 * 14, 768),
+                                 (130, 128), (385, 256), (99, 512),
+                                 (2 * 7 * 9, 1024)])
+def test_store_boxes_cover_each_output_once(n, c):
+    if cb.fused(c):
+        outs = [(n, c, -(-c // 64) * 64)]
+    else:  # the bf16 hidden layer, then the block's bf16 out
+        outs = [(n, 4 * c, cb.TILE_N), (n, c, cb.gemm_bn(n, c, H100_SMS))]
+    for m, w, bn in outs:
+        assert bool((_store_cover(m, w, bn) == 1).all()), (m, w, bn)
+
+
+def test_second_gemm_walk():
+    """The second GEMM's tiles (n x C, BN from the plan) cover the output
+    once at every GEMM width; at the batch-16 stages the plan takes 192 at
+    C = 384 and 768 (one wave at 16^2: 128 tiles, where 128-wide tiles
+    left 60 of 132 SMs a second tile)."""
+    for c in (256, 384, 512, 768, 1024):
+        for n in (16 * (512 // 4 // 2 ** (i + 1)) ** 2 for i in range(4)):
+            bn = cb.gemm_bn(n, c, H100_SMS)
+            assert c % bn == 0
+            cover = np.zeros((-(-n // cb.TILE_M), c // 64), np.int32)
+            for t in range(cover.shape[0] * (c // bn)):
+                m0, n0 = t // (c // bn), (t % (c // bn)) * bn // 64
+                cover[m0, n0:n0 + bn // 64] += 1
+            assert bool((cover == 1).all()), (n, c, bn)
+    assert cb.gemm_bn(16 * 32 * 32, 384, H100_SMS) == 192
+    assert cb.gemm_bn(16 * 16 * 16, 768, H100_SMS) == 192
+    assert -(-(16 * 16 * 16 // 128) * (768 // 192) // H100_SMS) == 1
+    assert -(-(16 * 16 * 16 // 128) * (768 // 128) // H100_SMS) == 2
+
+
+@pytest.mark.parametrize("c", [96, 128, 192, 384])
+def test_k_tail_skip_sums_the_zero_filled_walk(c):
+    """Leaving out the K16 steps that lie wholly in the zero fill (at C =
+    96 two of the second slab's four) gives the zero-filled walk's sums
+    exactly: each skipped step adds products of zeros."""
+    rng = np.random.default_rng(c)
+    a = torch.tensor(rng.normal(size=(128, c)).astype(np.float32))
+    b = torch.tensor(rng.normal(size=(64, c)).astype(np.float32))
+    assert cb.fused_h_steps(c) == c // 16
+    assert torch.equal(_k_steps(a, b), _k_steps(a, b, skip=False))
+    torch.testing.assert_close(_k_steps(a, b), a @ b.T, atol=1e-4,
+                               rtol=1e-5)
 
 
 def test_block_mlp_form_by_width():
