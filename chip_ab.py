@@ -22,7 +22,15 @@ temperature, so one pair alone says little. ``WHAT``:
   bf16 form's values upcast, forms in turns f32, bf16, bf16, f32, the
   card's clock, power and temperature before and after each;
 - ``steps``: 10a's fused-attack train step alone, ten timed steps after
-  two, each step's time.
+  two, each step's time;
+- ``confusion``: the confusion phase's cases and K = 716, the first K
+  whose 16 per-image outputs pass 5/8 of an H100's L2 (random and blocky
+  labels, summed and per image, batch 16 at 512^2), each
+  exact against the plain version, timed by this script's own code in
+  every checkout: a call (CUDA events around one call, the wrapper's host
+  work included), back to back (20 calls between two events), and the
+  device time of one call by torch.profiler, kernels and the memset that
+  zeroes the output apart; with the bytes bound and torch.bincount.
 
 Each run's output goes to ``<out>/ab_<i>_<dir>_<what>.log`` (``--out``,
 by default ``outputs/chip_ab``); the lines that compare are printed at
@@ -42,7 +50,8 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 SUMMARY = re.compile(
     r"four batch-16|^(block|fpn_concat_conv).*kernel [\d.]+ ms, plain"
     r"|^block .*fwd device split|^convnext_mlp .*3 stages summed"
-    r"|apgd .*marginal|^train step \(|^fpn gemm|^steps")
+    r"|apgd .*marginal|^train step \(|^fpn gemm|^steps"
+    r"|^confusion ab ")
 
 
 def smi(query: str) -> str:
@@ -80,6 +89,70 @@ def fpn_turns(cs, dev):
         print(f"fpn gemm {str(dt)[6:]}: dx {dx:.4f} ms, fwd {fwd:.4f} ms "
               f"[{before} -> {smi('clocks.sm,power.draw,temperature.gpu')}]",
               flush=True)
+
+
+CONFUSION_KS = (21, 151, 239, 300, 459, 847, 673, 716)
+
+
+def confusion_turns(cs, dev):
+    import inspect
+
+    import numpy as np
+    import torch
+    from robseg_torch.kernels import confusion as cf
+    props = torch.cuda.get_device_properties(dev)
+    # plan's card arguments: the SMs, and the L2 where the checkout's plan
+    # takes it
+    card = (props.multi_processor_count, props.L2_cache_size)
+    if "l2_bytes" not in inspect.signature(cf.plan).parameters:
+        card = card[:1]
+    print(f"confusion ab plan's card arguments: {card}", flush=True)
+    for seed, (k, blocky) in enumerate(
+            (k, b) for k in CONFUSION_KS for b in (False, True)):
+        pred, tgt = cs.label_maps((cs.BATCH, cs.HW, cs.HW), k, blocky, dev,
+                                  seed)
+        for per_image in (False, True):
+            kw = dict(num_classes=k, per_image=per_image)
+            rows, n = ((cs.BATCH, cs.HW * cs.HW) if per_image
+                       else (1, cs.BATCH * cs.HW * cs.HW))
+            launch = cf.plan(k, rows, n, *card)
+            want = cf.confusion_matrix_plain(pred, tgt, **kw)
+            if not torch.equal(cf.confusion_matrix_cuda(pred, tgt, **kw),
+                               want):
+                raise AssertionError(f"confusion K={k} differs from plain")
+            fn = lambda: cf.confusion_matrix_cuda(pred, tgt, **kw)  # noqa
+            call = cs.cuda_ms(fn, 20)
+            for _ in range(3):
+                fn()
+            runs = []
+            for _ in range(5):
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                for _ in range(20):
+                    fn()
+                b.record()
+                b.synchronize()
+                runs.append(a.elapsed_time(b) / 20)
+            split = cs.kernel_split(fn, 10)
+            kern = sum(ms for name, ms, _ in split if "confusion" in name)
+            mem = sum(ms for name, ms, _ in split if "emset" in name)
+            img = torch.arange(cs.BATCH, device=dev).view(cs.BATCH, 1, 1)
+            idx = (tgt * k + pred + (img * k * k if per_image else 0))[
+                tgt != -1]
+            lib = cs.cuda_ms(lambda: torch.bincount(
+                idx, minlength=want.numel()))
+            bms = cs.bound(16 * tgt.numel() + 4 * want.numel(), {"f32": 0})[0]
+            dev_ms = (kern + mem) if split else None
+            print(f"confusion ab K={k} {'blocky' if blocky else 'random'} "
+                  f"per_image={per_image} ({launch['form']}, grid "
+                  f"{launch['grid']}): call {call:.4f} ms, "
+                  f"back to back {float(np.median(runs)):.4f} ms, device "
+                  f"{cs.fmt_ms(dev_ms)} (kernels {kern:.4f} + memset "
+                  f"{mem:.4f}), bound {bms:.4f} ms, device share "
+                  f"{cs.fmt_share(bms, dev_ms)}, torch.bincount {lib:.4f} ms",
+                  flush=True)
+        del pred, tgt
 
 
 def train_steps(cs, dev):
@@ -133,12 +206,15 @@ def one(tree: str, what: str) -> None:
         fpn_turns(cs, dev)
     if what == "steps":
         train_steps(cs, dev)
+    if what == "confusion":
+        confusion_turns(cs, dev)
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--what", default="all",
-                    choices=("kernels", "paths", "all", "fpn", "steps"))
+                    choices=("kernels", "paths", "all", "fpn", "steps",
+                             "confusion"))
     ap.add_argument("--out", default=os.path.join(REPO, "outputs",
                                                    "chip_ab"))
     ap.add_argument("--one", action="store_true", help=argparse.SUPPRESS)

@@ -39,10 +39,12 @@ result line):
      is one (for the MLP tail: its products, one torch.matmul each at the
      mode's operand precision), and the card's bound for the work;
      The confusion kernel at 16 x 512^2 with K = 21 and 151 (its shared
-     form) and 239, 300, 459 and 847 (its global form), random and blocky
-     (32 x 32 regions) labels, summed and per image: bit for bit against
-     its plain version, torch.bincount and, at K = 21 and 151, its first
-     design, with the times of each and the kernels' own device times;
+     form), 239, 300, 459, 847 and 673 (its global form; each case's
+     kernel checked against the form ``plan`` chose, in the profiler's
+     list), random and blocky (32 x 32 regions) labels, summed and per
+     image: bit for bit against its plain version, torch.bincount and, at
+     K = 21 and 151, its first design, with the times of each and their
+     device times (the kernels and the memset that zeroes the output);
      then ``iou_acc_summary`` and ``per_image_intersect_union`` at K = 847
      on the card against the same calls on the CPU;
   2b. (TF32 off) the bf16 I/O forms of the block pair (the four stages and
@@ -756,33 +758,38 @@ def label_maps(shape, k, blocky, dev, seed):
 
 # the confusion phase's class counts, each with whether the shared form's
 # first design (one K x K histogram in shared memory, K <= 238) runs beside
-# the kernel: VOC's 21 and ADE20K's 151 (the shared form), the global
-# form's first K, 300, PASCAL-Context's 459 and ADE20K-full's 847
+# the kernel: VOC's 21 and ADE20K's 151 (the shared form), and in the global
+# form the first K past it, 300, PASCAL-Context's 459, ADE20K-full's 847
+# (per image, its 16 outputs pass 5/8 of an H100's L2: half the images at
+# once) and 673 (0.55 of that L2: all the images at once)
 CONFUSION_CASES = ((N_CLS, True), (N_ADE, True), (239, False), (300, False),
-                   (459, False), (847, False))
+                   (459, False), (847, False), (673, False))
 
 
 def phase_confusion(dev, results):
     """The confusion kernel against its plain version, bit for bit, at the
     SEA batch (16 x 512^2): each K of ``CONFUSION_CASES``, random and
-    blocky labels, summed and per image; times of the kernel, of the first
-    design where it runs (``confusion_matrix_v1_cuda``), of the plain
-    version and of one torch.bincount of the precomputed bin index, and
-    the bytes bound. Then the metrics that call the kernel at K = 847 on
+    blocky labels, summed and per image; the form ``plan`` chose and its
+    grid, checked against the kernel the profiler saw; times of the
+    kernel, of the first design where it runs
+    (``confusion_matrix_v1_cuda``), of the plain version and of one
+    torch.bincount of the precomputed bin index, and the bytes bound. Then the metrics that call the kernel at K = 847 on
     the card against the same calls on the CPU."""
     from robseg_torch.kernels import confusion as cf
     cases = []
     launches0 = cf.confusion_matrix_cuda.launches
+    card = cf.card(dev.index if dev.index is not None else 0)
+    print(f"confusion plan's card: {card[0]} SMs, {card[1]} bytes of L2",
+          flush=True)
     for seed, (k, blocky, with_v1) in enumerate(
             (k, blocky, v1) for k, v1 in CONFUSION_CASES
             for blocky in (False, True)):
         pred, tgt = label_maps((BATCH, HW, HW), k, blocky, dev, seed)
         for per_image in (False, True):
             kw = dict(num_classes=k, per_image=per_image)
-            form = cf.plan(k, BATCH if per_image else 1,
-                           HW * HW * (1 if per_image else BATCH),
-                           torch.cuda.get_device_properties(
-                               dev).multi_processor_count)["form"]
+            launch = cf.plan(k, BATCH if per_image else 1,
+                             HW * HW * (1 if per_image else BATCH), *card)
+            form = launch["form"]
             want = cf.confusion_matrix_plain(pred, tgt, **kw)
             got = cf.confusion_matrix_cuda(pred, tgt, **kw)
             old = cf.confusion_matrix_v1_cuda(pred, tgt, **kw) if with_v1 \
@@ -804,34 +811,45 @@ def phase_confusion(dev, results):
             t = [cuda_ms(new), cuda_ms(v1) if with_v1 else None,
                  cuda_ms(lambda: cf.confusion_matrix_plain(pred, tgt, **kw)),
                  cuda_ms(lambda: torch.bincount(idx, minlength=n_bins))]
-            # each histogram kernel's own device time (torch.profiler):
-            # the CUDA-event times above include the wrapper's host work
-            dt = [confusion_device_ms(new),
-                  confusion_device_ms(v1) if with_v1 else None]
+            # each histogram kernel's own device time with the memset that
+            # zeroes its output (torch.profiler): the CUDA-event times above
+            # include the wrapper's host work
+            dt, mem, names = confusion_device_ms(new)
+            ran = ("not seen (no device time)" if not names
+                   else "seen" if CONFUSION_KERNEL[form] in names
+                   else None)
+            if ran is None:
+                raise AssertionError(f"confusion K={k} per_image={per_image}:"
+                                     f" plan chose the {form} form "
+                                     f"({CONFUSION_KERNEL[form]}), the card "
+                                     f"ran {sorted(names)}")
+            dt = [dt, confusion_device_ms(v1)[0] if with_v1 else None]
             # pred and target int64 in, the float32 histogram out
             bms, bby = bound(16 * tgt.numel() + 4 * n_bins, {"f32": 0})
             labels = "blocky" if blocky else "random"
             first = (f"first design {t[1]:.4f} ms (device {fmt_ms(dt[1])})"
                      if with_v1 else "first design not run (K > 238)")
             print(f"confusion_matrix (16,512,512) K={k} {labels} per_image="
-                  f"{per_image} ({form} form): exact (kernel"
+                  f"{per_image} ({form} form, grid {launch['grid']}, "
+                  f"{CONFUSION_KERNEL[form]} {ran}): exact (kernel"
                   f"{', first design' if with_v1 else ''}, bincount), "
-                  f"kernel {t[0]:.4f} ms (device {fmt_ms(dt[0])}), {first}, "
+                  f"kernel {t[0]:.4f} ms (device {fmt_ms(dt[0])}, memset "
+                  f"{fmt_ms(mem)} of it), {first}, "
                   f"plain {t[2]:.3f} ms, library (torch.bincount) "
                   f"{t[3]:.4f} ms, bound {bms:.4f} ms ({bby}), share "
                   f"{bms / t[0]:.1%} (device {fmt_share(bms, dt[0])})",
                   flush=True)
             cases.append({"k": k, "labels": labels, "per_image": per_image,
-                          "form": form, "ms": t[0], "device_ms": dt[0],
-                          "v1_ms": t[1], "v1_device_ms": dt[1],
-                          "plain_ms": t[2], "library_ms": t[3],
-                          "bound_ms": bms, "bound_by": bby,
-                          "share": bms / t[0]})
+                          "form": form, "grid": launch["grid"], "ms": t[0],
+                          "device_ms": dt[0], "memset_ms": mem, "v1_ms": t[1],
+                          "v1_device_ms": dt[1], "plain_ms": t[2],
+                          "library_ms": t[3], "bound_ms": bms,
+                          "bound_by": bby, "share": bms / t[0]})
         del pred, tgt, idx
+    forms = {f: sum(c["form"] == f for c in cases) for f in cf.FORMS}
     print(f"confusion phase: {cf.confusion_matrix_cuda.launches - launches0} "
-          "kernel launches, "
-          f"{sum(c['form'] == 'global' for c in cases)} of {len(cases)} "
-          "cases in the global form", flush=True)
+          f"kernel launches, cases by form {forms} of {len(cases)}",
+          flush=True)
     confusion_callers_check(dev, 847)
     head = cases[0]  # K = 21, random labels, summed: the row's numbers
     results["confusion_matrix"] = {
@@ -840,11 +858,22 @@ def phase_confusion(dev, results):
                                       "bound_ms", "bound_by")}}
 
 
+# the kernel each form of the confusion kernel launches (csrc/confusion.cu)
+CONFUSION_KERNEL = {"shared": "confusion_kernel",
+                    "global": "confusion_global_kernel"}
+
+
 def confusion_device_ms(fn):
-    """The confusion kernels' own device ms in one call of ``fn``, or None
-    where torch.profiler recorded no device time."""
-    return sum(ms for name, ms, _ in kernel_split(fn)
-               if "confusion" in name) or None
+    """The device ms of one call of ``fn`` (torch.profiler): (the confusion
+    kernels and the memset that zeroes their output, the memset's part, the
+    set of the confusion kernels' names without template arguments), or
+    (None, None, empty) where the profiler recorded no device time."""
+    split = kernel_split(fn)
+    mem = sum(ms for name, ms, _ in split if "emset" in name)
+    kern = sum(ms for name, ms, _ in split if "confusion" in name)
+    names = {short_name(name).split("<")[0] for name, _, _ in split
+             if "confusion" in name}
+    return (kern + mem, mem, names) if kern else (None, None, set())
 
 
 def confusion_callers_check(dev, k):

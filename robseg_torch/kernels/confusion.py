@@ -12,10 +12,11 @@ kernel, and anything the kernel does not take raises.
 The kernel takes any number of classes ``K >= 1``, in one of two forms that
 ``plan`` chooses: the shared form for ``K <= 238`` (the whole K x K int32
 histogram in shared memory, per warp where it fits) and the global form
-above that (the histogram in the output in global memory, the diagonal in
-shared memory). Both write float32 counts directly when every count stays
-below 2^24 (exact in float32, as in the JAX kernel's float32 accumulator),
-and int32 counts, converted after, above that.
+above that (the histogram in the output in global memory, where the
+atomics resolve in the L2, the diagonal in shared memory). Both write
+float32 counts directly when every count stays below 2^24 (exact in
+float32, as in the JAX kernel's float32 accumulator), and int32 counts,
+converted after, above that.
 ``confusion_matrix_v1_cuda`` launches the shared form's first design, for
 ``chip_smoke.py``'s comparison only; nothing in the package calls it.
 """
@@ -53,32 +54,48 @@ SMEM_TWO_BLOCKS = 113 * 1024  # two blocks fit on an SM
 # the largest K of the shared form: one K x K int32 copy of 226,576 bytes
 SHARED_MAX_CLASSES = 238
 FORMS = {"shared": 0, "global": 1}
+# the global form per image: where the rows' outputs pass this share of the
+# L2 (where the atomics resolve), half the rows are counted at once, so that
+# the outputs being counted stay in it. On an NVIDIA H100 80GB HBM3 (50 MiB
+# of L2) at 700 W, 16 images of random labels at K = 716 (0.63 of the L2)
+# took 0.0886 -> 0.0733 ms of device time, at K = 847 (0.88) 0.1136 ->
+# 0.0870 (chip_ab.py --what confusion; PERF.md, row 6b).
+L2_ROWS_SHARE = (5, 8)
 
 
-def plan(k: int, rows: int, n: int, sms: int) -> dict:
+def plan(k: int, rows: int, n: int, sms: int, l2_bytes: int) -> dict:
     """The kernel's form and launch for ``rows`` histograms (the images
     when per image, else 1) of ``n`` pixels each on a card with ``sms``
-    SMs. ``width`` is the ints of one shared copy: the K x K histogram in
-    the shared form, the diagonal (at most 28,928 classes, the rest go to
-    global memory) in the global form; ``copies`` one a warp where they
-    fit in a two-blocks-a-SM budget. The grid is the card's resident blocks
-    split over the rows, with no block below one 8-pixel group a thread."""
+    SMs and ``l2_bytes`` of L2. ``width`` is the ints of one shared copy:
+    the K x K histogram in the shared form, the diagonal (at most 28,928
+    classes, the rest go to global memory) in the global form; ``copies``
+    one a warp where they fit in a two-blocks-a-SM budget. The grid is the
+    card's resident blocks split over the rows, with no block below one
+    8-pixel group a thread; in the global form over half the rows where
+    their 4-byte outputs pass ``L2_ROWS_SHARE`` of the L2 (twice the
+    blocks a row, so the blocks resident at once count half the rows)."""
+    live = rows
     if k <= SHARED_MAX_CLASSES:
         form, width = "shared", k * k
     else:
         form, width = "global", min(k, SMEM_TWO_BLOCKS // 4)
+        num, den = L2_ROWS_SHARE
+        if 4 * k * k * rows * den > l2_bytes * num:
+            live = max(1, rows // 2)
     copies = max(1, min(WARPS, SMEM_TWO_BLOCKS // (4 * width)))
     smem = 4 * copies * width
     per_sm = 2 if smem <= SMEM_TWO_BLOCKS else 1
     need = (n // RUN + THREADS - 1) // THREADS
-    grid_x = max(1, min(sms * per_sm // rows, need))
+    grid_x = max(1, min(sms * per_sm // live, need))
     return {"form": form, "width": width, "copies": copies, "smem": smem,
             "blocks_per_sm": per_sm, "grid": (grid_x, rows)}
 
 
 @functools.lru_cache(maxsize=None)
-def _sms(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
+def card(index: int) -> tuple:
+    """(SMs, L2 bytes) of card ``index``: ``plan``'s card arguments."""
+    props = torch.cuda.get_device_properties(index)
+    return props.multi_processor_count, props.L2_cache_size
 
 
 def _checked(pred, target, num_classes):
@@ -112,7 +129,7 @@ def confusion_matrix_cuda(pred, target, *, num_classes: int,
     b, n = pred.shape
     k = num_classes
     rows, row_pixels = (b, n) if per_image else (1, b * n)
-    launch = plan(k, rows, row_pixels, _sms(pred.device.index))
+    launch = plan(k, rows, row_pixels, *card(pred.device.index))
     f32 = b * n < F32_EXACT
     hist = torch.empty((b, k, k) if per_image else (k, k),
                        dtype=torch.float32 if f32 else torch.int32,

@@ -11,6 +11,8 @@ them on the H100.
 
 import importlib.util
 import os
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -412,17 +414,27 @@ def test_label_maps(smoke, blocky, k):
 
 def test_confusion_cases(smoke):
     """The confusion phase covers both forms of the kernel: K = 21 and 151
-    (shared), 239 (the global form's first K) up to ADE20K-full's 847; the
-    first design, one K x K histogram in shared memory, runs only where
-    K <= 238."""
+    (shared), 239 (the global form's first K) up to ADE20K-full's 847,
+    whose 16 per-image outputs on an H100 (132 SMs, 50 MiB of L2) are
+    counted half at once, and 673, whose are not; the first design, one
+    K x K histogram in shared memory, runs only where K <= 238. Each form
+    names the kernel the phase looks for in the profiler's list."""
     from robseg_torch.kernels import confusion as cf
+    h100 = (132, 50 << 20)
     ks = [k for k, _ in smoke.CONFUSION_CASES]
     assert ks[:2] == [smoke.N_CLS, smoke.N_ADE] and {239, 847} <= set(ks)
     assert len(set(ks)) == len(ks)
+    assert set(smoke.CONFUSION_KERNEL) == set(cf.FORMS)
     for k, with_v1 in smoke.CONFUSION_CASES:
         assert with_v1 == (k <= cf.SHARED_MAX_CLASSES)
-        assert cf.plan(k, 1, 16 * 512 * 512, 132)["form"] == (
-            "shared" if with_v1 else "global")
+        for rows in (1, 16):
+            assert cf.plan(k, rows, 16 * 512 * 512 // rows, *h100)[
+                "form"] == ("shared" if with_v1 else "global")
+    per_image = {k: cf.plan(k, 16, 512 * 512, *h100)["grid"][0] for k in ks}
+    assert per_image[847] == 33 and per_image[673] == 16
+    src = (Path(cf.__file__).parents[1] / "csrc" / "confusion.cu").read_text()
+    for kernel in smoke.CONFUSION_KERNEL.values():
+        assert re.search(rf"\b{kernel}\(", src), kernel
 
 
 def test_fixture_ade_is_an_ade20k_val_tree(smoke, tmp_path):

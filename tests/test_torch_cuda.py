@@ -221,20 +221,45 @@ def test_confusion_shapes_exact(dev, k, shape, blocky):
                                        num_classes=k))
 
 
-# the two forms' boundary (238: the shared form's largest K; 239: the
-# global form), 300 and ADE20K-full's 847 at the SEA batch, random and
-# blocky labels, 847 at the VOC crop's odd rows, and 300 at 64 x 512^2 =
-# 2^24 pixels (int32 path); each also on a view whose rows start off the
-# 16-byte grid
+def launched_kernels(fn, tries: int = 5) -> set:
+    """The names, without namespaces or template arguments, of the CUDA
+    kernels one call of ``fn`` launches (torch.profiler; a window in which
+    CUPTI handed back no kernel is taken again, up to ``tries`` times)."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = {e.name.replace("void ", "")
+                 .replace("(anonymous namespace)::", "")
+                 .split("<")[0].split("(")[0] for e in prof.events()
+                 if "confusion" in e.name}
+        if names:
+            return names
+    raise AssertionError(f"torch.profiler saw no confusion kernel in {tries} "
+                         "windows")
+
+
+# the form's boundary and the class counts users run, at the SEA batch
+# (16 x 512^2), random and blocky labels: 238 (the shared form's largest
+# K), 239 (the global form's first), 300, 459 (PASCAL-Context) and 847
+# (ADE20K-full; per image on an H100 half the images at once); 847 at the
+# VOC crop's odd rows and at 511 x 513 (every other row starts off the
+# 16-byte grid); 673 and 716, on both sides of the H100's L2 rule; 64 x
+# 512^2 = 2^24 pixels (int32 path) at 239 and 300. Each case also on a view
+# whose rows start off the 16-byte grid, and each launch checked to have
+# run the kernel of the form ``plan`` chose for this card.
 @pytest.mark.parametrize("k,shape,blocky", [
     (238, (16, 512, 512), False), (239, (16, 512, 512), False),
     (239, (16, 512, 512), True),
     (300, (16, 512, 512), False), (300, (16, 512, 512), True),
+    (459, (16, 512, 512), False), (459, (16, 512, 512), True),
     (847, (16, 512, 512), False), (847, (16, 512, 512), True),
-    (847, (3, 473, 473), True), (300, (64, 512, 512), True)])
+    (847, (3, 473, 473), True), (847, (16, 511, 513), False),
+    (673, (16, 512, 512), False), (716, (16, 512, 512), True),
+    (239, (64, 512, 512), True), (300, (64, 512, 512), True)])
 def test_confusion_any_classes_exact(dev, k, shape, blocky):
-    launch = cf.plan(k, shape[0], shape[1] * shape[2], 132)
-    assert launch["form"] == ("shared" if k <= 238 else "global")
+    card = cf.card(torch.cuda.current_device())
     rng = np.random.default_rng(k)
     t = blocky_labels(rng, shape, k) if blocky else rng.integers(0, k, shape)
     p = np.where(rng.random(shape) < 0.5, t,
@@ -244,10 +269,18 @@ def test_confusion_any_classes_exact(dev, k, shape, blocky):
     p = torch.tensor(p, device=dev)
     t[torch.rand(shape, device=dev) < 0.05] = -1
     p[torch.rand(shape, device=dev) < 0.02] = k + 2
+    n = shape[1] * shape[2]
     for per_image in (False, True):
         kw = dict(num_classes=k, per_image=per_image)
+        rows, row_n = (shape[0], n) if per_image else (1, shape[0] * n)
+        form = cf.plan(k, rows, row_n, *card)["form"]
+        assert form == ("shared" if k <= 238 else "global")
         want = kernels.confusion_matrix_plain(p, t, **kw)
         assert torch.equal(kernels.confusion_matrix_cuda(p, t, **kw), want)
+        assert launched_kernels(
+            lambda: kernels.confusion_matrix_cuda(p, t, **kw)) == {
+                {"shared": "confusion_kernel",
+                 "global": "confusion_global_kernel"}[form]}
         off = (t.flatten()[1:].view(1, -1), p.flatten()[1:].view(1, -1))
         assert torch.equal(
             kernels.confusion_matrix_cuda(off[1], off[0], **kw),
