@@ -30,7 +30,16 @@ temperature, so one pair alone says little. ``WHAT``:
   every checkout: a call (CUDA events around one call, the wrapper's host
   work included), back to back (20 calls between two events), and the
   device time of one call by torch.profiler, kernels and the memset that
-  zeroes the output apart; with the bytes bound and torch.bincount.
+  zeroes the output apart; with the bytes bound and torch.bincount;
+- ``launch``: the wrappers' call time (CUDA events around one call, the
+  wrapper's host work included; ROUNDS rounds of 20 calls, each round's
+  median) of the APGD step (batch 16, 512^2, row 5 of PERF.md), the
+  confusion kernel (K = 21, summed, random labels, row 6) and one
+  stage-0 block forward (16 x 128 x 128 x 96, float32), with the host
+  time of the launch guard's parts on the current card, each given the
+  card as a device (``cuda:0``, as the wrappers did before the guard) and
+  as its index (as ``_build.launch`` gives it): the current-stream query,
+  ``torch.cuda.device`` entered and left, and both.
 
 Each run's output goes to ``<out>/ab_<i>_<dir>_<what>.log`` (``--out``,
 by default ``outputs/chip_ab``); the lines that compare are printed at
@@ -51,7 +60,7 @@ SUMMARY = re.compile(
     r"four batch-16|^(block|fpn_concat_conv).*kernel [\d.]+ ms, plain"
     r"|^block .*fwd device split|^convnext_mlp .*3 stages summed"
     r"|apgd .*marginal|^train step \(|^fpn gemm|^steps"
-    r"|^confusion ab ")
+    r"|^confusion ab |^launch ab ")
 
 
 def smi(query: str) -> str:
@@ -89,6 +98,68 @@ def fpn_turns(cs, dev):
         print(f"fpn gemm {str(dt)[6:]}: dx {dx:.4f} ms, fwd {fwd:.4f} ms "
               f"[{before} -> {smi('clocks.sm,power.draw,temperature.gpu')}]",
               flush=True)
+
+
+ROUNDS = 5
+
+
+def launch_turns(cs, dev):
+    import numpy as np
+    import torch
+    from robseg_torch.kernels import apgd_step
+    from robseg_torch.kernels import confusion as cf
+    from robseg_torch.kernels import convnext_block as cb
+    g = torch.Generator(device=dev).manual_seed(0)
+    shape = (cs.BATCH, 3, cs.HW, cs.HW)
+    x = torch.rand(shape, device=dev, generator=g)
+    x_adv, x_old = (torch.clamp(x + (torch.rand(shape, device=dev, generator=g)
+                                     - 0.5) * cs.EPS, 0, 1) for _ in (0, 1))
+    grad = torch.randn(shape, device=dev, generator=g)
+    step = torch.rand((cs.BATCH, 1, 1, 1), device=dev, generator=g) * cs.EPS
+    pred, tgt = cs.label_maps((cs.BATCH, cs.HW, cs.HW), cs.N_CLS, False, dev,
+                              0)
+    p = cs.block_params(np.random.default_rng(0), 96, dev)
+    xb = torch.randn((cs.BATCH, 128, 128, 96), device=dev, generator=g)
+    cases = (
+        ("apgd_linf_step (16, 3, 512, 512)", lambda: apgd_step.
+         apgd_linf_step_cuda(x, x_adv, x_old, grad, step, cs.EPS, 0.75)),
+        ("confusion_matrix K=21 summed (16, 512, 512)",
+         lambda: cf.confusion_matrix_cuda(pred, tgt, num_classes=cs.N_CLS)),
+        ("convnext_block_fwd (16, 128, 128, 96)",
+         lambda: cb.convnext_block_fwd_cuda(xb, *p)))
+    for name, fn in cases:
+        rounds = [cs.cuda_ms(fn, 20) for _ in range(ROUNDS)]
+        print(f"launch ab {name}: call " + " ".join(
+            f"{ms:.4f}" for ms in rounds) + f" ms, median "
+            f"{float(np.median(rounds)):.4f}", flush=True)
+    def stream(card):
+        return torch.cuda.current_stream(card).cuda_stream
+
+    def guard(card):
+        with torch.cuda.device(card):
+            pass
+
+    def both(card):
+        with torch.cuda.device(card):
+            return stream(card)
+
+    us = []
+    for name, part, card in (
+            (f"stream query by {xb.device}", stream, xb.device),
+            ("by index", stream, xb.device.index),
+            (f"device guard by {xb.device}", guard, xb.device),
+            ("by index", guard, xb.device.index),
+            (f"guard and query by {xb.device}", both, xb.device),
+            ("by index", both, xb.device.index)):
+        runs = []
+        for _ in range(ROUNDS):
+            t0 = time.perf_counter()
+            for _ in range(10000):
+                part(card)
+            runs.append((time.perf_counter() - t0) / 10000 * 1e6)
+        us.append(f"{name} " + " ".join(f"{v:.2f}" for v in runs))
+    print(f"launch ab host us a call on {xb.device}, already current, "
+          f"{ROUNDS} rounds of 10000: " + "; ".join(us), flush=True)
 
 
 CONFUSION_KS = (21, 151, 239, 300, 459, 847, 673, 716)
@@ -208,13 +279,15 @@ def one(tree: str, what: str) -> None:
         train_steps(cs, dev)
     if what == "confusion":
         confusion_turns(cs, dev)
+    if what == "launch":
+        launch_turns(cs, dev)
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--what", default="all",
                     choices=("kernels", "paths", "all", "fpn", "steps",
-                             "confusion"))
+                             "confusion", "launch"))
     ap.add_argument("--out", default=os.path.join(REPO, "outputs",
                                                    "chip_ab"))
     ap.add_argument("--one", action="store_true", help=argparse.SUPPRESS)

@@ -233,6 +233,15 @@ result line):
      image's), every adversarial batch inside its eps ball; the block pair,
      the APGD-step and the confusion kernels must have launched
      (``launches_data_parallel_path`` in the kernels line).
+  P. placement, with two cards or more: the main path (the full-width
+     model at batch 16, 512^2: logits, the input gradient of
+     sum(mask-ce-avg), 2 Linf APGD iterations and the confusion metrics of
+     the adversarial predictions) with the model and the inputs on the
+     last card while card 0 is current, against the same run on card 0:
+     logits and gradient under phase 3's bounds, the histograms exact;
+     counted from zero, the block, APGD-step and confusion kernels must
+     have launched on the last card. With one card it prints
+     ``placement: not run (1 card visible)``.
 Each phase prints its seconds. Then one JSON line of per-kernel results,
 and the last line
 ``{"ok": true, "device": {...}}``.
@@ -3584,6 +3593,109 @@ def phase_data_parallel(tmp: str, smi: str, sea_ref: tuple,
     return counts
 
 
+# the kernels the placement phase's run must launch on the far card
+PLACEMENT_PATH = MAIN_PATH
+
+
+def placement_cards(n_cards: int):
+    """The placement phase's cards: (the current card, the card that holds
+    the model and the inputs) = card 0 and the last card; None with one
+    card, where there is no other card to put them on."""
+    return (0, n_cards - 1) if n_cards >= 2 else None
+
+
+def placement_run(dev) -> tuple:
+    """The main path on card ``dev``, whichever card is current: the
+    full-width model (``build_model``'s seeded weights) on a seeded batch
+    16 at 512^2, its logits and the input gradient of sum(mask-ce-avg);
+    then 2 Linf APGD iterations (mask-ce-avg tracking ce-avg, random
+    start) and the confusion metrics of the adversarial predictions (the
+    summed histogram, the per-image intersections and unions). Returns
+    the results on the CPU and the launch counts of the run, counted from
+    zero."""
+    from robseg_torch import kernels
+    from robseg_torch.attacks.apgd import apgd_attack
+    from robseg_torch.ops.losses import ATTACK_CRITERIA
+    from robseg_torch.ops.metrics import (confusion_matrix,
+                                          per_image_intersect_union)
+    logits_fn = build_model(dev).logits_fn
+    g = torch.Generator(device=dev).manual_seed(1)
+    x = torch.rand((BATCH, 3, HW, HW), device=dev, generator=g)
+    y = torch.randint(0, N_CLS, (BATCH, HW, HW), device=dev, generator=g)
+    kernels.reset_launch_counts()
+    xg = x.clone().requires_grad_(True)
+    logits = logits_fn(xg)
+    loss = ATTACK_CRITERIA["mask-ce-avg"](logits, y).sum()
+    grad = torch.autograd.grad(loss, xg)[0]
+    adv = apgd_attack(logits_fn, x, y, norm="Linf", eps=EPS, n_iter=2,
+                      use_rs=True, loss="mask-ce-avg", track_loss="ce-avg",
+                      generator=torch.Generator(device=dev).manual_seed(
+                          2)).x_best_adv
+    with torch.no_grad():
+        pred = logits_fn(adv).argmax(1)
+    hist = confusion_matrix(pred, y, num_classes=N_CLS)
+    inter, union = per_image_intersect_union(pred, y, num_classes=N_CLS)
+    counts = kernels.launch_counts()
+    out = {"logits": logits.detach(), "grad": grad, "adv": adv,
+           "pred": pred, "hist": hist, "inter": inter, "union": union}
+    where = {k: str(t.device) for k, t in out.items() if t.device != dev}
+    if where:
+        raise AssertionError(f"placement on {dev}: results on {where}")
+    if not (bool(torch.isfinite(adv).all())
+            and float((adv - x).abs().max()) <= EPS + 1e-6):
+        raise AssertionError(f"placement on {dev}: APGD result outside the "
+                             "eps ball or not finite")
+    return {k: t.cpu() for k, t in out.items()}, counts
+
+
+def phase_placement():
+    """P: the main path with the model and the inputs on the last card
+    while card 0 is current (``placement_run``), held against the same
+    run on card 0: logits and input gradient under ``phase_model``'s
+    bounds, the confusion histograms exact; the block, APGD-step and
+    confusion kernels must have launched in the far run, and card 0 must
+    still be current after it. With one card it prints that it did not
+    run. Returns the far run's launch counts, or None."""
+    cards = placement_cards(torch.cuda.device_count())
+    if cards is None:
+        print("placement: not run (1 card visible)", flush=True)
+        return None
+    home, far = (torch.device("cuda", i) for i in cards)
+    torch.cuda.set_device(home)
+    ref, _ = placement_run(home)
+    torch.cuda.empty_cache()
+    got, counts = placement_run(far)
+    if torch.cuda.current_device() != home.index:
+        raise AssertionError(f"placement: card {torch.cuda.current_device()}"
+                             f" is current after the run, not {home}")
+    missing = [k for k in PLACEMENT_PATH if counts[k] <= 0]
+    if missing:
+        raise AssertionError(f"placement: never launched on {far}: "
+                             f"{missing}")
+    e_l = float((got["logits"] - ref["logits"]).abs().max())
+    e_g = rel_max_err(got["grad"], ref["grad"])
+    # in float64: over 12.6 M entries a float32 cosine of a vector with
+    # itself reads 1.001
+    cos = float(torch.nn.functional.cosine_similarity(
+        got["grad"].double().flatten(), ref["grad"].double().flatten(),
+        dim=0))
+    same = {k: torch.equal(got[k], ref[k]) for k in got}
+    print(f"placement: {torch.cuda.get_device_name(far)} {far} holding the "
+          f"model and a ({BATCH},3,{HW},{HW}) batch while {home} is current,"
+          f" against the same run on {home}: logits max_abs_err {e_l:.3e}, "
+          f"input-grad rel_max_err {e_g:.3e}, cosine {cos:.6f}; bit for "
+          f"bit equal: {same}; {far} launches {counts}", flush=True)
+    torch.testing.assert_close(got["logits"], ref["logits"], atol=2e-2,
+                               rtol=2e-2)
+    if not (math.isfinite(e_g) and e_g <= 0.15 and cos >= 0.99):
+        raise AssertionError(f"placement input grad: rel max err {e_g}, "
+                             f"cosine {cos}")
+    if not all(same[k] for k in ("hist", "inter", "union")):
+        raise AssertionError("placement: the confusion metrics on "
+                             f"{far} differ from those on {home}")
+    return counts
+
+
 @contextlib.contextmanager
 def timed(name: str):
     """Print a phase's wall seconds when it ends."""
@@ -3737,6 +3849,8 @@ def main():
         dp_counts = phase_data_parallel(tmp, smi, sea_ref,
                                         steps["fused attack"])
     print(f"data-parallel-path launches: {dp_counts}", flush=True)
+    with timed("P placement"):
+        phase_placement()
     missing = [f"{k} (train path)" for k in TRAIN_PATH
                if train_counts[k] <= 0]
     missing += [f"{k} (bf16 train path)" for k in BF16_TRAIN_PATH

@@ -250,7 +250,9 @@ int launch(int form, const int64_t* pred, const int64_t* target, OutT* hist,
   const size_t smem = (size_t)copies * width * sizeof(int);
   if (smem > (size_t)kSmemMax) return (int)cudaErrorInvalidValue;
   // host work once a process, card and form (function attributes are a
-  // card's): allow the largest dynamic shared memory
+  // card's): allow the largest dynamic shared memory. The card is the
+  // current device, which the wrapper makes the tensors' card for the call
+  // (kernels/_build.py::launch), so this table is right as it stands.
   constexpr int kCards = 64;
   static bool smem_set[kCards][2] = {};
   int card = 0;

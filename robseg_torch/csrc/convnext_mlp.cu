@@ -112,7 +112,7 @@ int64_t robseg_mlp_scratch_bf16(int64_t n, int C, bool with_h, bool bwd) {
 int robseg_mlp_fwd_bf16(const float* x, const float* ls, const float* lb,
                         const float* w1, const float* b1, const float* w2,
                         const float* b2, const float* gamma, void* scratch,
-                        float* out, float* h, int64_t n, int C,
+                        float* out, float* h, int64_t n, int C, int sms,
                         cudaStream_t s) {
   const TailBf16 sc = carve_bf16((char*)scratch, n, C, h != nullptr, false);
   PackParams pk = {};
@@ -123,7 +123,6 @@ int robseg_mlp_fwd_bf16(const float* x, const float* ls, const float* lb,
     e = ln_rows<bf16>(x, ls, lb, sc.u, nullptr, nullptr, nullptr, nullptr,
                        nullptr, n, C, s);
   if (e) return e;
-  const int sms = sm_count();
   if (C <= kFusedMaxC) {
     FusedParams p = {};
     p.b1 = b1;
@@ -165,7 +164,7 @@ int robseg_mlp_fwd_bf16(const float* x, const float* ls, const float* lb,
 int robseg_mlp_dx_bf16(const float* x, const float* h, const float* gout,
                        const float* ls, const float* lb, const float* w1,
                        const float* b1, const float* w2, const float* gamma,
-                       void* scratch, float* dx, int64_t n, int C,
+                       void* scratch, float* dx, int64_t n, int C, int sms,
                        cudaStream_t s) {
   const bool read_h = h != nullptr;
   const TailBf16 sc = carve_bf16((char*)scratch, n, C, read_h, true);
@@ -180,7 +179,6 @@ int robseg_mlp_dx_bf16(const float* x, const float* h, const float* gout,
     e = ln_rows<bf16>(x, ls, lb, sc.u, sc.xhat, sc.inv, gout, gamma,
                        sc.gms, n, C, s);
   if (e) return e;
-  const int sms = sm_count();
   if (C <= kFusedMaxC) {
     FusedParams p = {};
     p.b1 = b1;
@@ -246,40 +244,45 @@ extern "C" int64_t robseg_convnext_mlp_scratch(int64_t n, int C, int with_h,
 // Forward. x, out: (n, C) f32; w1: (4C, C), w2: (C, 4C), vectors (C) or
 // (4C), all f32 (the call packs them); h: (n, 4C) f32 written when not
 // null; scratch: robseg_convnext_mlp_scratch(n, C, h != null,
-// bf16_operands, 0) bytes. Returns 0, a CUDA error, -1 for an unsupported
-// width, or -(CUresult) if a tensor map was refused.
+// bf16_operands, 0) bytes; sms: the SM count of the card the call
+// launches on (the current device), the persistent grids' size, from the
+// caller as for the block's entry points. Returns 0, a CUDA error, -1 for
+// an unsupported width, or -(CUresult) if a tensor map was refused.
 extern "C" int robseg_convnext_mlp_fwd(const float* x, const float* ls,
                                        const float* lb, const float* w1,
                                        const float* b1, const float* w2,
                                        const float* b2, const float* gamma,
                                        void* scratch, float* out, float* h,
                                        int64_t n, int C, int bf16_operands,
-                                       void* stream) {
+                                       int sms, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (n == 0) return 0;
+  if (sms < 1) return (int)cudaErrorInvalidValue;
   return bf16_operands
              ? robseg_mlp_fwd_bf16(x, ls, lb, w1, b1, w2, b2, gamma, scratch,
-                                   out, h, n, C, s)
+                                   out, h, n, C, sms, s)
              : robseg_mlp_fwd_f32(x, ls, lb, w1, b1, w2, b2, gamma, scratch,
-                                  out, h, n, C, s);
+                                  out, h, n, C, sms, s);
 }
 
 // Input gradient. x, gout, dx: (n, C) f32; h: the forward's saved (n, 4C)
 // f32 hidden, or null to recompute it; parameters as for the forward;
 // scratch: robseg_convnext_mlp_scratch(n, C, h != null, bf16_operands, 1)
-// bytes.
+// bytes; sms as for the forward.
 extern "C" int robseg_convnext_mlp_dx(const float* x, const float* h,
                                       const float* gout, const float* ls,
                                       const float* lb, const float* w1,
                                       const float* b1, const float* w2,
                                       const float* gamma, void* scratch,
                                       float* dx, int64_t n, int C,
-                                      int bf16_operands, void* stream) {
+                                      int bf16_operands, int sms,
+                                      void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (n == 0) return 0;
+  if (sms < 1) return (int)cudaErrorInvalidValue;
   return bf16_operands
              ? robseg_mlp_dx_bf16(x, h, gout, ls, lb, w1, b1, w2, gamma,
-                                  scratch, dx, n, C, s)
+                                  scratch, dx, n, C, sms, s)
              : robseg_mlp_dx_f32(x, h, gout, ls, lb, w1, b1, w2, gamma,
-                                 scratch, dx, n, C, s);
+                                 scratch, dx, n, C, sms, s);
 }

@@ -1214,17 +1214,6 @@ int map2d(CUtensorMap* m, const void* ptr, int64_t rows, int cols,
 
 int grid_for(int tiles, int sms) { return tiles < sms ? tiles : sms; }
 
-// the card's SM count: the persistent grids' size (MLP-tail entry points,
-// which take no such argument; the block's wrapper passes it in). 0 if
-// the query failed, and then the launch fails.
-int sm_count() {
-  static int sms = 0;
-  int dev = 0;
-  if (sms == 0 && cudaGetDevice(&dev) == cudaSuccess)
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  return sms;
-}
-
 // The fused MLP; with h (WITH_H) the backward reads neither u nor panel0
 // (W1), which may be null. IO: the forward's x and out (the backward
 // writes f32 dyconv whatever the block's I/O); the bf16 forward needs x.
@@ -1384,13 +1373,13 @@ int ln_rows(const float* y, const float* ls, const float* lb, T* u,
                               const float* b1, const float* w2,             \
                               const float* b2, const float* gamma,          \
                               void* scratch, float* out, float* h,          \
-                              int64_t n, int C, cudaStream_t s);            \
+                              int64_t n, int C, int sms, cudaStream_t s);   \
   int robseg_mlp_dx_##SUFFIX(const float* x, const float* h,                \
                              const float* gout, const float* ls,            \
                              const float* lb, const float* w1,              \
                              const float* b1, const float* w2,              \
                              const float* gamma, void* scratch, float* dx,  \
-                             int64_t n, int C, cudaStream_t s);
+                             int64_t n, int C, int sms, cudaStream_t s);
 ROBSEG_MLP_DECLARE(f32)
 ROBSEG_MLP_DECLARE(bf16)
 #undef ROBSEG_MLP_DECLARE

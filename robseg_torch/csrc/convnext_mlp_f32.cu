@@ -328,7 +328,7 @@ int64_t robseg_mlp_scratch_f32(int64_t n, int C, bool with_h, bool bwd) {
 int robseg_mlp_fwd_f32(const float* x, const float* ls, const float* lb,
                        const float* w1, const float* b1, const float* w2,
                        const float* b2, const float* gamma, void* scratch,
-                       float* out, float* h, int64_t n, int C,
+                       float* out, float* h, int64_t n, int C, int sms,
                        cudaStream_t s) {
   const TailF32 sc = carve_f32((char*)scratch, n, C, h != nullptr, false);
   PackParams pk = {};
@@ -339,7 +339,6 @@ int robseg_mlp_fwd_f32(const float* x, const float* ls, const float* lb,
     e = ln_rows<float>(x, ls, lb, sc.u, nullptr, nullptr, nullptr, nullptr,
                        nullptr, n, C, s);
   if (e) return e;
-  const int sms = sm_count();
   float* hid = h ? h : sc.h;
   Tf32Params p = {};
   p.bias = b1;
@@ -360,7 +359,7 @@ int robseg_mlp_fwd_f32(const float* x, const float* ls, const float* lb,
 int robseg_mlp_dx_f32(const float* x, const float* h, const float* gout,
                       const float* ls, const float* lb, const float* w1,
                       const float* b1, const float* w2, const float* gamma,
-                      void* scratch, float* dx, int64_t n, int C,
+                      void* scratch, float* dx, int64_t n, int C, int sms,
                       cudaStream_t s) {
   const bool read_h = h != nullptr;
   const TailF32 sc = carve_f32((char*)scratch, n, C, read_h, true);
@@ -373,7 +372,6 @@ int robseg_mlp_dx_f32(const float* x, const float* h, const float* gout,
     e = ln_rows<float>(x, ls, lb, sc.u, sc.xhat, sc.inv, gout, gamma, sc.gms,
                        n, C, s);
   if (e) return e;
-  const int sms = sm_count();
   Tf32Params p = {};
   if (!read_h) {  // h = u . W1^T + b1 again
     p.bias = b1;

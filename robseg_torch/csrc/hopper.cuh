@@ -488,7 +488,9 @@ typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
                                   CUtensorMapSwizzle, CUtensorMapL2promotion,
                                   CUtensorMapFloatOOBfill);
 
-// cuTensorMapEncodeTiled, looked up through the CUDA runtime (no -lcuda)
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime (no -lcuda).
+// The function's address is the process's, not a card's, so one lookup
+// serves every card.
 EncodeTiledFn encode_tiled() {
   static EncodeTiledFn fn = nullptr;
   if (fn == nullptr) {

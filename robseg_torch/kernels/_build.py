@@ -11,6 +11,14 @@ that have no ``nvcc``.
 ``native_library(name)`` does the same for ``robseg_torch/native/<name>.cpp``
 with ``g++`` (``CXX``), into ``_build/lib<name>_<hash>.so``, under the same
 lock: the worst-case search engines (``attacks/worst_case.py``).
+
+The C entry points launch on the CUDA runtime's current device. Every
+wrapper calls one through ``launch``, which makes the tensors' card the
+current device for the call and passes that card's current stream, so a
+kernel runs on the card that holds its tensors, as a JAX kernel runs on
+the device that holds its arrays, whichever card is current. Card-wide
+quantities (the SM count, the L2 size) come from the wrapper, read from
+that card's properties; the library keeps no such value of its own.
 """
 
 from __future__ import annotations
@@ -23,6 +31,8 @@ import shutil
 import subprocess
 import tempfile
 import threading
+
+import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
@@ -156,8 +166,8 @@ _SIGNATURES = {
     "robseg_fpn_dx": [_P] * 9 + [_I] * 9 + [_P],
     "robseg_convnext_mlp_supported": [_I],
     "robseg_convnext_mlp_scratch": [_I64] + [_I] * 4,
-    "robseg_convnext_mlp_fwd": [_P] * 11 + [_I64, _I, _I, _P],
-    "robseg_convnext_mlp_dx": [_P] * 11 + [_I64, _I, _I, _P],
+    "robseg_convnext_mlp_fwd": [_P] * 11 + [_I64, _I, _I, _I, _P],
+    "robseg_convnext_mlp_dx": [_P] * 11 + [_I64, _I, _I, _I, _P],
 }
 
 
@@ -179,9 +189,24 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
-def check(err: int, name: str) -> None:
-    """Raise if a C entry point reported a CUDA error (its return value is
-    ``cudaGetLastError()`` after the launches)."""
+def sms(card: torch.device) -> int:
+    """The SM count of ``card``: the persistent grids' size, which the
+    wrappers pass to the entry points that size a grid by it."""
+    return torch.cuda.get_device_properties(card).multi_processor_count
+
+
+def launch(card: torch.device, entry, *args, name: str) -> None:
+    """Call the C entry point ``entry`` with ``args`` and the current
+    stream of ``card`` (the device of the kernel's tensors) appended, with
+    ``card`` the current device for the call, and raise naming the kernel
+    ``name`` if it reports a CUDA error (its return value is
+    ``cudaGetLastError()`` after the launches). Every kernel launch of the
+    wrappers goes through here, forward and backward alike (autograd's
+    device threads are not relied on). The size and support queries
+    launch nothing and are called directly. The card goes to torch by
+    its index, which torch takes without parsing a device."""
+    with torch.cuda.device(card.index):
+        err = entry(*args, torch.cuda.current_stream(card.index).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
 

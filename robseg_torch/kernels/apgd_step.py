@@ -49,11 +49,11 @@ def apgd_linf_step_cuda(x, x_adv, x_old, grad, step, eps: float, a: float):
     step = step.reshape(b).contiguous()
     out = torch.empty_like(x)
     per_image = x.numel() // b
-    err = _build.library().robseg_apgd_linf_step(
-        x.data_ptr(), x_adv.data_ptr(), x_old.data_ptr(), grad.data_ptr(),
-        step.data_ptr(), out.data_ptr(), b, per_image, float(eps), float(a),
-        1.0 - float(a), torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(err, "apgd_linf_step")
+    _build.launch(
+        x.device, _build.library().robseg_apgd_linf_step, x.data_ptr(),
+        x_adv.data_ptr(), x_old.data_ptr(), grad.data_ptr(), step.data_ptr(),
+        out.data_ptr(), b, per_image, float(eps), float(a), 1.0 - float(a),
+        name="apgd_linf_step")
     apgd_linf_step_cuda.launches += 1
     return out
 

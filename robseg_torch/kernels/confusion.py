@@ -134,12 +134,12 @@ def confusion_matrix_cuda(pred, target, *, num_classes: int,
     hist = torch.empty((b, k, k) if per_image else (k, k),
                        dtype=torch.float32 if f32 else torch.int32,
                        device=pred.device)
-    err = _build.library().robseg_confusion(
-        pred.data_ptr(), target.data_ptr(), hist.data_ptr(), b, n, k,
-        int(ignore_label), 0 if per_image else 1, int(f32),
-        FORMS[launch["form"]], launch["copies"], launch["width"],
-        launch["grid"][0], torch.cuda.current_stream(pred.device).cuda_stream)
-    _build.check(err, "confusion_matrix")
+    _build.launch(
+        pred.device, _build.library().robseg_confusion, pred.data_ptr(),
+        target.data_ptr(), hist.data_ptr(), b, n, k, int(ignore_label),
+        0 if per_image else 1, int(f32), FORMS[launch["form"]],
+        launch["copies"], launch["width"], launch["grid"][0],
+        name="confusion_matrix")
     confusion_matrix_cuda.launches += 1
     return hist if f32 else hist.to(torch.float32)
 
@@ -160,11 +160,10 @@ def confusion_matrix_v1_cuda(pred, target, *, num_classes: int,
     k = num_classes
     hist = torch.zeros((b, k, k) if per_image else (k, k),
                        dtype=torch.int32, device=pred.device)
-    err = _build.library().robseg_confusion_v1(
-        pred.data_ptr(), target.data_ptr(), hist.data_ptr(), b, n, k,
-        int(ignore_label), 0 if per_image else 1,
-        torch.cuda.current_stream(pred.device).cuda_stream)
-    _build.check(err, "confusion_matrix_v1")
+    _build.launch(
+        pred.device, _build.library().robseg_confusion_v1, pred.data_ptr(),
+        target.data_ptr(), hist.data_ptr(), b, n, k, int(ignore_label),
+        0 if per_image else 1, name="confusion_matrix_v1")
     return hist.to(torch.float32)
 
 

@@ -123,10 +123,6 @@ def fused(c: int) -> bool:
     return c <= FUSED_MAX_C
 
 
-def _sms(device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 IO_DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -179,12 +175,11 @@ def _fwd(counter, io_dtype, x, dw, dwb, ls, lb, w1, b1, w2, b2, gamma):
     scratch = torch.empty(lib.robseg_convnext_block_scratch(b, h, w, c, 0),
                           dtype=torch.uint8, device=x.device)
     out = torch.empty_like(x)
-    err = lib.robseg_convnext_block_fwd(
-        x.data_ptr(), *(t.data_ptr() for t in params), scratch.data_ptr(),
-        out.data_ptr(), b, h, w, c, int(io_dtype == torch.bfloat16),
-        int(p_bf16), _sms(x.device),
-        torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(err, counter.__name__)
+    _build.launch(
+        x.device, lib.robseg_convnext_block_fwd, x.data_ptr(),
+        *(t.data_ptr() for t in params), scratch.data_ptr(), out.data_ptr(),
+        b, h, w, c, int(io_dtype == torch.bfloat16), int(p_bf16),
+        _build.sms(x.device), name=counter.__name__)
     counter.launches += 1
     return out
 
@@ -200,12 +195,11 @@ def _dx(counter, io_dtype, x, dy, dw, dwb, ls, lb, w1, b1, w2, b2, gamma):
     scratch = torch.empty(lib.robseg_convnext_block_scratch(b, h, w, c, 1),
                           dtype=torch.uint8, device=x.device)
     dx = torch.empty_like(x)
-    err = lib.robseg_convnext_block_dx(
-        x.data_ptr(), dy.data_ptr(), *(t.data_ptr() for t in params),
-        scratch.data_ptr(), dx.data_ptr(), b, h, w, c,
-        int(io_dtype == torch.bfloat16), int(p_bf16), _sms(x.device),
-        torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(err, counter.__name__)
+    _build.launch(
+        x.device, lib.robseg_convnext_block_dx, x.data_ptr(), dy.data_ptr(),
+        *(t.data_ptr() for t in params), scratch.data_ptr(), dx.data_ptr(),
+        b, h, w, c, int(io_dtype == torch.bfloat16), int(p_bf16),
+        _build.sms(x.device), name=counter.__name__)
     counter.launches += 1
     return dx
 

@@ -154,13 +154,13 @@ def convnext_mlp_fwd_cuda(y, ls, lb, w1, b1, w2, b2, gamma, save_h=False,
     h = (torch.empty((n, 4 * c), dtype=torch.float32, device=y.device)
          if save_h else None)
     scratch = _scratch(lib, y, n, c, save_h, bf16_operands, False)
-    err = lib.robseg_convnext_mlp_fwd(
-        y.data_ptr(), k["ls"].data_ptr(), k["lb"].data_ptr(),
-        k["w1"].data_ptr(), k["b1"].data_ptr(), k["w2"].data_ptr(),
-        k["b2"].data_ptr(), k["gamma"].data_ptr(), scratch.data_ptr(),
-        out.data_ptr(), None if h is None else h.data_ptr(), n, c,
-        int(bf16_operands), torch.cuda.current_stream(y.device).cuda_stream)
-    _build.check(err, "convnext_mlp_fwd")
+    _build.launch(
+        y.device, lib.robseg_convnext_mlp_fwd, y.data_ptr(),
+        k["ls"].data_ptr(), k["lb"].data_ptr(), k["w1"].data_ptr(),
+        k["b1"].data_ptr(), k["w2"].data_ptr(), k["b2"].data_ptr(),
+        k["gamma"].data_ptr(), scratch.data_ptr(), out.data_ptr(),
+        None if h is None else h.data_ptr(), n, c, int(bf16_operands),
+        _build.sms(y.device), name="convnext_mlp_fwd")
     convnext_mlp_fwd_cuda.launches += 1
     return out, h
 
@@ -186,13 +186,13 @@ def convnext_mlp_dx_cuda(y, gout, ls, lb, w1, b1, w2, gamma, h=None,
     gout = gout.contiguous()
     dx = torch.empty_like(y)
     scratch = _scratch(lib, y, n, c, h is not None, bf16_operands, True)
-    err = lib.robseg_convnext_mlp_dx(
-        y.data_ptr(), None if h is None else h.data_ptr(), gout.data_ptr(),
+    _build.launch(
+        y.device, lib.robseg_convnext_mlp_dx, y.data_ptr(),
+        None if h is None else h.data_ptr(), gout.data_ptr(),
         k["ls"].data_ptr(), k["lb"].data_ptr(), k["w1"].data_ptr(),
         k["b1"].data_ptr(), k["w2"].data_ptr(), k["gamma"].data_ptr(),
         scratch.data_ptr(), dx.data_ptr(), n, c, int(bf16_operands),
-        torch.cuda.current_stream(y.device).cuda_stream)
-    _build.check(err, "convnext_mlp_dx")
+        _build.sms(y.device), name="convnext_mlp_dx")
     convnext_mlp_dx_cuda.launches += 1
     return dx
 

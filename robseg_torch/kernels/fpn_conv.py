@@ -110,10 +110,6 @@ def plan(b: int, h: int, w: int, n: int, slots: int, sms: int) -> dict:
             "store_box": (STORE_C, store_w, STORE_PIXELS // store_w)}
 
 
-def _sms(device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def _check(name: str, t: torch.Tensor, shape, device, dtypes=(torch.float32,),
            contiguous: bool = True) -> None:
     if (not t.is_cuda or t.device != device or t.dtype not in dtypes
@@ -155,7 +151,7 @@ def _fwd(counter, io_dtype, xs, w, s, t):
     _check("s", s, (co,), dev)
     _check("t", t, (co,), dev)
     wp = weight_panels(w, transpose=False)
-    pl = plan(b, h, wd, co, 1, _sms(dev))
+    pl = plan(b, h, wd, co, 1, _build.sms(dev))
     bf16 = io_dtype == torch.bfloat16
     # float32 maps are written once as bf16 for the GEMM; bf16 maps are
     # read where they lie
@@ -163,12 +159,11 @@ def _fwd(counter, io_dtype, xs, w, s, t):
                                        device=dev)
     out = torch.empty((b, h, wd, co), dtype=io_dtype, device=dev)
     ptrs = [x.data_ptr() for x in xs] + [None] * (4 - n)
-    err = _build.library().robseg_fpn_fwd(
-        *ptrs, n, wp.data_ptr(), s.data_ptr(), t.data_ptr(),
-        None if xb is None else xb.data_ptr(), out.data_ptr(), b, h, wd, c,
-        co, int(bf16), pl["box_w"], pl["blocks"],
-        torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, counter.__name__)
+    _build.launch(
+        dev, _build.library().robseg_fpn_fwd, *ptrs, n, wp.data_ptr(),
+        s.data_ptr(), t.data_ptr(), None if xb is None else xb.data_ptr(),
+        out.data_ptr(), b, h, wd, c, co, int(bf16), pl["box_w"],
+        pl["blocks"], name=counter.__name__)
     counter.launches += 1
     return out
 
@@ -180,17 +175,16 @@ def _dx(counter, io_dtype, dy, out, w, s):
     _check("out", out, (b, h, wd, co), dy.device, (io_dtype,))
     _check("s", s, (co,), dy.device)
     wt = weight_panels(w, transpose=True)
-    pl = plan(b, h, wd, c, n, _sms(dy.device))
+    pl = plan(b, h, wd, c, n, _build.sms(dy.device))
     g = torch.empty((b, h, wd, co), dtype=torch.bfloat16, device=dy.device)
     dxs = [torch.empty((b, h, wd, c), dtype=io_dtype, device=dy.device)
            for _ in range(n)]
     ptrs = [d.data_ptr() for d in dxs] + [None] * (4 - n)
-    err = _build.library().robseg_fpn_dx(
-        dy.data_ptr(), out.data_ptr(), wt.data_ptr(), s.data_ptr(),
-        g.data_ptr(), *ptrs, n, b, h, wd, c, co,
-        int(io_dtype == torch.bfloat16), pl["box_w"], pl["blocks"],
-        torch.cuda.current_stream(dy.device).cuda_stream)
-    _build.check(err, counter.__name__)
+    _build.launch(
+        dy.device, _build.library().robseg_fpn_dx, dy.data_ptr(),
+        out.data_ptr(), wt.data_ptr(), s.data_ptr(), g.data_ptr(), *ptrs, n,
+        b, h, wd, c, co, int(io_dtype == torch.bfloat16), pl["box_w"],
+        pl["blocks"], name=counter.__name__)
     counter.launches += 1
     return tuple(dxs)
 

@@ -597,3 +597,78 @@ def test_data_parallel_worlds_by_card_count(smoke, cards, want):
     4) ranks over NCCL with a card each, or with one card 2 ranks sharing
     it over gloo (NCCL refuses two ranks on one card)."""
     assert smoke.dp_worlds(cards) == want
+
+
+@pytest.mark.parametrize("cards,want", [(0, None), (1, None), (2, (0, 1)),
+                                        (4, (0, 3)), (8, (0, 7))])
+def test_placement_cards(smoke, cards, want):
+    """Phase P: card 0 current and the model and inputs on the last card;
+    with one card (or none) there is no other card to put them on."""
+    assert smoke.placement_cards(cards) == want
+
+
+def _fake_cards(monkeypatch, smoke, n_cards, far_fault=None):
+    """torch.cuda's card queries for ``n_cards`` cards, card 0 current, and
+    a ``placement_run`` whose far run differs by ``far_fault``: a count
+    of zero (``"launch"``), one histogram bin (``"hist"``) or a logit
+    moved past the bound (``"logits"``). Returns the cards it ran on."""
+    ran = []
+
+    def run(dev):
+        ran.append(dev)
+        out = {"logits": torch.zeros(2, 21, 4, 4),
+               "grad": torch.linspace(-1, 1, 96).reshape(2, 3, 4, 4),
+               "adv": torch.full((2, 3, 4, 4), 0.5),
+               "pred": torch.zeros(2, 4, 4, dtype=torch.long),
+               "hist": torch.eye(21), "inter": torch.ones(2, 21),
+               "union": torch.ones(2, 21)}
+        counts = {k: 3 for k in smoke.REPLACES}
+        if dev.index != 0:
+            if far_fault == "launch":
+                counts["apgd_linf_step"] = 0
+            elif far_fault == "hist":
+                out["hist"][3, 4] += 1
+            elif far_fault == "logits":
+                out["logits"][0, 0, 0, 0] = 0.5
+        return out, counts
+
+    monkeypatch.setattr(smoke, "placement_run", run)
+    for name, fn in (("device_count", lambda: n_cards),
+                     ("set_device", lambda d: None),
+                     ("current_device", lambda: 0),
+                     ("get_device_name", lambda d=None: "card"),
+                     ("empty_cache", lambda: None)):
+        monkeypatch.setattr(torch.cuda, name, fn)
+    return ran
+
+
+def test_placement_runs_card_0_then_the_last(smoke, monkeypatch, capsys):
+    ran = _fake_cards(monkeypatch, smoke, 4)
+    counts = smoke.phase_placement()
+    assert ran == [torch.device("cuda", 0), torch.device("cuda", 3)]
+    assert all(counts[k] > 0 for k in smoke.PLACEMENT_PATH)
+    assert "bit for bit equal" in capsys.readouterr().out
+
+
+def test_placement_not_run_on_one_card(smoke, monkeypatch, capsys):
+    ran = _fake_cards(monkeypatch, smoke, 1)
+    assert smoke.phase_placement() is None and ran == []
+    assert "placement: not run (1 card visible)" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("fault,match", [
+    ("launch", "never launched on cuda:1: \\['apgd_linf_step'\\]"),
+    ("hist", "confusion metrics"),
+    ("logits", "not close")])
+def test_placement_fails_on_a_far_fault(smoke, monkeypatch, fault, match):
+    _fake_cards(monkeypatch, smoke, 2, fault)
+    with pytest.raises(AssertionError, match=match):
+        smoke.phase_placement()
+
+
+def test_placement_runs_after_phase_d(smoke):
+    """Phase P runs from main after phase D and before the kernels line;
+    the kernels it must launch are the main path's."""
+    main = _calls(smoke.main)
+    assert main.index("phase_data_parallel") < main.index("phase_placement")
+    assert set(smoke.PLACEMENT_PATH) == set(smoke.MAIN_PATH)

@@ -29,6 +29,15 @@ MLP forward atol = rtol = 2e-2 (:294-295) and gradient atol = rtol = 5e-2
 (:235-236). The float32-operand
 MLP-tail kernels against the float32 plain version: forward atol 2e-5,
 gradient atol 5e-4 / rtol 1e-3 (:81-104, :142-145).
+
+Placement (two cards or more; each case skips with one card): every
+kernel form run on the last card while card 0 is current, its tensors
+there, against the same call on card 0, bit for bit. Every form is
+deterministic from run to run (each output tile is one block's, and the
+confusion kernel's atomics add integers), so none is held to a tolerance
+instead. The models (main path, fused variant, bf16 main path) on the
+last card against card 0 under phase 3 of chip_smoke.py's bounds: their
+PyTorch operations outside the kernels need not be deterministic.
 """
 
 import numpy as np
@@ -676,3 +685,169 @@ def test_data_parallel_world_on_card(dev):
         assert counts["convnext_block_dx"] > 0
         assert math.isfinite(loss) and loss == ranks[0][1]
         assert digest == ranks[0][2]
+
+
+@pytest.fixture
+def cards():
+    """(card 0, the last card), card 0 current; skips below two cards."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices: the kernels run on the last "
+                    "card while card 0 is current")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    return (torch.device("cuda", 0),
+            torch.device("cuda", torch.cuda.device_count() - 1))
+
+
+def _block_form(dx: bool, bf16: bool, c: int):
+    def run(dev):
+        rng = np.random.default_rng(23)
+        shape = (2, 37, 20, c) if c <= cb.FUSED_MAX_C else (1, 15, 15, c)
+        p = block_params(rng, c, dev)
+        x, dy = (torch.tensor(rng.normal(size=shape), dtype=torch.float32,
+                              device=dev) for _ in (0, 1))
+        if bf16:
+            x, dy, *p = (t.to(torch.bfloat16) for t in (x, dy, *p))
+        fwd = cb._FWD_CUDA[x.dtype]
+        return cb._DX_CUDA[x.dtype](x, dy, *p) if dx else fwd(x, *p)
+    return run
+
+
+def _mlp_form(dx: bool, mode: str, c: int):
+    def run(dev):
+        save_h, bf16 = cm.MODES[mode]
+        rng = np.random.default_rng(29)
+        shape = (2, 19, 19, c) if c <= cb.FUSED_MAX_C else (3, 7, 13, c)
+        ls, lb, w1, b1, w2, b2, g = mlp_params(rng, c, dev)
+        y, dy = (torch.tensor(rng.normal(size=shape), dtype=torch.float32,
+                              device=dev) for _ in (0, 1))
+        out, h = cm.convnext_mlp_fwd_cuda(y, ls, lb, w1, b1, w2, b2, g,
+                                          save_h=save_h, bf16_operands=bf16)
+        if not dx:
+            return (out,) + ((h,) if save_h else ())
+        return cm.convnext_mlp_dx_cuda(y, dy, ls, lb, w1, b1, w2, g, h=h,
+                                       bf16_operands=bf16)
+    return run
+
+
+def _fpn_form(dx: bool, bf16: bool):
+    def run(dev):
+        rng = np.random.default_rng(31)
+        n, shape, co = 4, (2, 19, 16, 128), 128
+        dt = torch.bfloat16 if bf16 else torch.float32
+        t = lambda a: torch.tensor(a, device=dev).to(dt)  # noqa
+        xs = [t(rng.normal(size=shape)) for _ in range(n)]
+        w = t(rng.normal(size=(n, 3, 3, shape[-1], co)) / 30)
+        s = torch.tensor(1 + 0.1 * rng.normal(size=co), dtype=torch.float32,
+                         device=dev)
+        b = torch.tensor(0.1 * rng.normal(size=co), dtype=torch.float32,
+                         device=dev)
+        out = fc._FWD_CUDA[dt](xs, w, s, b)
+        if not dx:
+            return out
+        return fc._DX_CUDA[dt](t(rng.normal(size=out.shape)), out, w, s)
+    return run
+
+
+def _apgd_form(dev):
+    rng = np.random.default_rng(37)
+    shape = (4, 3, 33, 47)
+    t = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)  # noqa
+    x = t(rng.random(shape))
+    x_adv, x_old = (torch.clamp(x + t(rng.uniform(-0.03, 0.03, shape)), 0,
+                                1) for _ in (0, 1))
+    return kernels.apgd_linf_step_cuda(x, x_adv, x_old,
+                                       t(rng.normal(size=shape)),
+                                       t(rng.uniform(0.01, 0.05, (4,))),
+                                       8 / 255, 0.75)
+
+
+def _confusion_form(k: int, per_image: bool, first_design: bool = False):
+    def run(dev):
+        rng = np.random.default_rng(k)
+        shape = (3, 97, 101)
+        t = torch.tensor(rng.integers(-1, k, shape), device=dev)
+        p = torch.tensor(np.where(rng.random(shape) < 0.5, t.cpu().numpy(),
+                                  rng.integers(0, k + 2, shape)), device=dev)
+        fn = (confusion_matrix_v1_cuda if first_design
+              else kernels.confusion_matrix_cuda)
+        return fn(p, t, num_classes=k, per_image=per_image)
+    return run
+
+
+PLACEMENT_FORMS = {
+    **{f"block_{d}_{io}_C{c}": _block_form(d == "dx", io == "bf16", c)
+       for d in ("fwd", "dx") for io in ("f32", "bf16") for c in (96, 384)},
+    **{f"mlp_{d}_{mode}_C{c}": _mlp_form(d == "dx", mode, c)
+       for d in ("fwd", "dx") for mode in ("residual", "recompute_bf16")
+       for c in (96, 384)},
+    **{f"fpn_{d}_{io}": _fpn_form(d == "dx", io == "bf16")
+       for d in ("fwd", "dx") for io in ("f32", "bf16")},
+    "apgd_linf_step": _apgd_form,
+    **{f"confusion_K{k}_{'per_image' if pi else 'summed'}":
+       _confusion_form(k, pi) for k in (21, 847) for pi in (False, True)},
+    "confusion_first_design_K21": _confusion_form(21, True, True),
+}
+
+
+@pytest.mark.parametrize("form", sorted(PLACEMENT_FORMS))
+def test_kernel_runs_on_its_tensors_card(cards, form):
+    """The kernel form on the last card while card 0 is current: its
+    outputs there, bit for bit those of the same call on card 0, and card
+    0 still current after it."""
+    home, far = cards
+    want = PLACEMENT_FORMS[form](home)
+    got = PLACEMENT_FORMS[form](far)
+    torch.cuda.synchronize(far)
+    assert torch.cuda.current_device() == home.index
+    want, got = ((o if isinstance(o, tuple) else (o,)) for o in (want, got))
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert a.device == far and b.device == home
+        assert torch.equal(a.cpu(), b.cpu())
+
+
+@pytest.mark.parametrize("setting", ["main", "fused-variant", "bf16"])
+def test_model_runs_on_its_tensors_card(cards, setting):
+    """The full-width UperNet-ConvNeXt-T_CVST (seeded weights, 64^2, batch
+    2) in a ModelBundle on the last card while card 0 is current: its
+    kernels launch (counted from zero), the logits and the input gradient
+    of their sum lie there and agree with the same model on card 0 under
+    phase 3 of chip_smoke.py's bounds."""
+    from robseg_torch.models import ModelBundle
+    from robseg_torch.models.upernet import UperNetForSemanticSegmentation
+    home, far = cards
+    settings = ({"fused_mlp_mode": "residual", "fused_head": "pallas"}
+                if setting == "fused-variant" else {})
+    launched = {"main": ("convnext_block_fwd", "convnext_block_dx"),
+                "fused-variant": ("convnext_mlp_fwd", "convnext_mlp_dx",
+                                  "fpn_concat_conv_fwd",
+                                  "fpn_concat_conv_dx"),
+                "bf16": ("convnext_block_fwd_bf16",
+                         "convnext_block_dx_bf16")}[setting]
+
+    def run(dev):
+        torch.manual_seed(0)
+        m = UperNetForSemanticSegmentation("T_CVST", 21, **settings)
+        fn = ModelBundle(m.to(dev), "bf16" if setting == "bf16"
+                         else "default").logits_fn
+        x = torch.rand((2, 3, 64, 64), generator=torch.Generator()
+                       .manual_seed(1)).to(dev).requires_grad_(True)
+        kernels.reset_launch_counts()
+        logits = fn(x)
+        (grad,) = torch.autograd.grad(logits.sum(), x)
+        return logits.detach(), grad, kernels.launch_counts()
+
+    lw, gw, _ = run(home)
+    lg, gg, counts = run(far)
+    assert torch.cuda.current_device() == home.index
+    assert all(counts[k] > 0 for k in launched), counts
+    assert lg.device == gg.device == far
+    atol = 5e-2 if setting == "bf16" else 2e-2
+    torch.testing.assert_close(lg.cpu(), lw.cpu(), atol=atol, rtol=atol)
+    cos = float(torch.nn.functional.cosine_similarity(
+        gg.cpu().flatten(), gw.cpu().flatten(), dim=0))
+    assert rel_max_err(gg.cpu(), gw.cpu()) <= 0.15 and cos >= 0.99
